@@ -7,25 +7,37 @@ Needs one CUDA card; exits nonzero without one. Phases, any failure exits
 nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the sparse-conv kernel from ``sparse_rcnn_tpu_torch/ops/csrc``;
-3. the kernel against its plain version on random inputs at every conv
-   shape of a config-1 forward (f32 and bf16), a ragged M and a
-   config-2-sized shape, with kernel, plain, library and bound times;
-4. the config-1 slice on the card: ``infer.main`` on 3 val scenes (the
-   launch counter must rise by 10 per forward); tie-breaking of sort and
-   argmax on the card; then the same weights and scenes on the CPU, where
-   the plain version runs: site tables and rulebooks bit-exact, floats to
-   tolerance, proposal masks and classes exact; warm ms per scene split
-   into hierarchy, backbone and heads; the kernel against its plain
-   version, timed, on the inputs the main path's 10 convs gave it;
+2. build the sparse-conv kernels from ``sparse_rcnn_tpu_torch/ops/csrc``;
+3. the forward kernel against its plain version on random inputs at every
+   conv shape of a config-1 forward (f32 and bf16), a ragged M and a
+   config-2-sized shape, with kernel, plain, library and bound times; then
+   the backward kernels (dgrad and wgrad) the same way, the wgrad checked
+   bit-identical across two launches;
+4. the config-1 inference slice on the card: ``infer.main`` on 3 val scenes
+   (the forward count must rise by 10 per forward); tie-breaking of sort
+   and argmax on the card; then the same weights and scenes on the CPU,
+   where the plain versions run: site tables and rulebooks bit-exact,
+   floats to tolerance, proposal masks and classes exact; warm ms per scene
+   split into hierarchy, backbone and heads; the forward kernel against its
+   plain version, timed, on the inputs the main path's 10 convs gave it;
 5. the committed JAX-init weights (``tests/fixtures``) reproduce
    ``tests/e2e/golden_config1.npz`` on the card;
-6. a ``kernels`` JSON line, then as the last line
+6. the config-1 training slice on the card: ``python -m
+   sparse_rcnn_tpu_torch.train``'s ``main`` for 5 steps (per step 10
+   forward, 9 dgrad and 10 wgrad launches; finite losses); one step's loss
+   parts and gradients and the params after 3 steps, card against CPU; the
+   run-to-run difference of a step's gradients on the card; warm ms per
+   train step split into prepare (with GT), forward (with losses),
+   backward and optimizer; the backward kernels timed on the inputs the
+   main path gave them;
+7. the committed weights reproduce JAX's 3-step train trajectory
+   ``tests/fixtures/golden_config1_train.npz`` on the card;
+8. a ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-TF32 is off throughout (cuDNN and matmul), so every f32 comparison holds
-f32 against f32. Detailed records go to ``--out-dir`` (by default
-``chiprun_out/chip_smoke/``).
+TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
+algorithms, so every f32 comparison holds f32 against f32. Detailed
+records go to ``--out-dir`` (by default ``chiprun_out/chip_smoke/``).
 """
 
 from __future__ import annotations
@@ -41,17 +53,24 @@ import time
 import numpy as np
 import torch
 
+import copy
+
+import sparse_rcnn_tpu_torch.train.__main__ as train_cli
+from benchmarks import profile_torch_slice as PROF
 from sparse_rcnn_tpu_torch import infer
 from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.data import synthetic
+from sparse_rcnn_tpu_torch.data.pipeline import TrainStream
 from sparse_rcnn_tpu_torch.models.transfer import from_flax, unflatten_variables
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
 from sparse_rcnn_tpu_torch.train import loop as TL
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
 CONFIG1 = os.path.join(ROOT, "configs", "config1_tiny_5cm.yaml")
 GOLDEN = os.path.join(ROOT, "tests", "e2e", "golden_config1.npz")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_config1_params.npz")
+TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_config1_train.npz")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
 # flop/s per input type (f32 outside the tensor cores)
@@ -78,6 +97,30 @@ EXTRA_CONVS = [  # (name, K, Cin, Cout, M_in, M_out, dtype)
 ]
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# wgrad against its plain version: up to B*M products per entry summed in
+# another order (bf16 products are exact in f32): 1e-4 of the largest entry
+WGRAD_RTOL = 1e-4
+TRAIN_STEPS = 5
+PER_STEP = (10, 9, 10)          # forward, dgrad (the stem's input needs none), wgrad
+# card against CPU, one config-1 step, per parameter relative to the
+# largest entry of its gradient. Outside the RoI head: with the mask weight
+# 0, f32 sums of up to 32768*27 products in other orders through ~20
+# layers, 1e-4 (measured worst 1.1e-5); with the full loss the card also
+# adds the bf16-read mask-logit gradient in f32 (CUDA index_put_
+# accumulates in f32) where the CPU adds it in bf16, 1e-3 (measured worst
+# 1.1e-5). The RoI head's dense convs (cuDNN) run on a trilinear crop whose
+# box corners differ between the devices in their last bits (proposals are
+# decoded through exp), which moves the sampling weights and flips a ReLU
+# at a few of the ~11k x 32 positions that their bias gradients sum over:
+# 1e-2 for either weighting (measured worst 1.4e-3, conv1.bias).
+GRAD_TOL = {"mask0": 1e-4, "full": 1e-3}
+GRAD_TOL_ROI_HEAD = 1e-2
+LOSS_WEIGHTS = {"mask0": [1.0, 1.0, 1.0, 0.0], "full": [1.0, 1.0, 1.0, 1.0]}
+# params after a few Adam steps: every entry within 2 * (sum of the applied
+# lrs), the most two updates with |update| <= 1 can part, and at most
+# PARAM_OUTLIERS of the entries past PARAM_ATOL (tests/test_torch_train_steps.py)
+PARAM_ATOL = 1e-6
+PARAM_OUTLIERS = 2.5e-4
 
 
 def log(msg: str) -> None:
@@ -117,8 +160,10 @@ def card_info() -> str:
         f"count {torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     log("TF32 off: torch.backends.cudnn.allow_tf32 = False, "
-        "torch.backends.cuda.matmul.allow_tf32 = False")
+        "torch.backends.cuda.matmul.allow_tf32 = False; cudnn.deterministic = True")
     return smi
 
 
@@ -126,6 +171,7 @@ def build() -> None:
     t0 = time.perf_counter()
     so, messages = sc.build_kernel()
     sc.KERNEL.load()
+    sc.WGRAD.load()
     log(f"[phase 2] built {os.path.relpath(so, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in messages.splitlines():
@@ -139,13 +185,13 @@ def build() -> None:
 
 def conv_inputs(k, cin, cout, m_in, m_out, dtype, seed):
     """Random feats/W and an idx with about 30 % of entries -1, on the card."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    feats = torch.randn((1, m_in, cin), generator=g, device="cuda").to(dtype)
-    w = (torch.randn((k, cin, cout), generator=g, device="cuda")
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    feats = torch.randn((1, m_in, cin), generator=g, device=DEVICE).to(dtype)
+    w = (torch.randn((k, cin, cout), generator=g, device=DEVICE)
          * (2.0 / (k * cin)) ** 0.5).to(dtype)
-    rows = torch.randint(0, m_in, (1, k, m_out), generator=g, device="cuda",
+    rows = torch.randint(0, m_in, (1, k, m_out), generator=g, device=DEVICE,
                          dtype=torch.int32)
-    miss = torch.rand((1, k, m_out), generator=g, device="cuda") < 0.3
+    miss = torch.rand((1, k, m_out), generator=g, device=DEVICE) < 0.3
     idx = torch.where(miss, -1, rows).contiguous()
     return feats, idx, w
 
@@ -167,16 +213,16 @@ def library_fn(feats, idx, w):
     return lambda: torch.matmul(fz[ix].reshape(b * m_out, k * cin), w2)
 
 
-def measure_conv(name, feats, idx, w) -> dict:
-    """The kernel against its plain version on these inputs, with kernel,
-    plain, library and bound times. The bound counts the bytes of idx,
-    feats, W and out, each once, and the products of this idx's live
-    entries."""
+def measure_conv(name, feats, idx, w, kernel=sc.KERNEL) -> dict:
+    """The gather-GEMM ``kernel`` (the forward, or the dgrad on g, t_idx and
+    Wᵀ) against its plain version on these inputs, with kernel, plain,
+    library and bound times. The bound counts the bytes of idx, feats, W
+    and out, each once, and the products of this idx's live entries."""
     dtype = feats.dtype
     b, m_in, cin = feats.shape
     k, _, cout = w.shape
     m_out = idx.shape[-1]
-    got = sc.KERNEL(feats, idx, w)
+    got = kernel(feats, idx, w)
     want = sc.sparse_conv_reference(feats, idx, w)
     lib = library_fn(feats, idx, w)
     torch.cuda.synchronize()
@@ -193,7 +239,7 @@ def measure_conv(name, feats, idx, w) -> dict:
         "conv": name, "dtype": str(dtype).replace("torch.", ""), "K": k,
         "Cin": cin, "Cout": cout, "M_in": m_in, "M_out": m_out,
         "live_taps": nnz, "max_abs_err": err, "tol": TOL[dtype], "ok": bool(ok),
-        "kernel_ms": time_ms(lambda: sc.KERNEL(feats, idx, w)),
+        "kernel_ms": time_ms(lambda: kernel(feats, idx, w)),
         "plain_ms": time_ms(lambda: sc.sparse_conv_reference(feats, idx, w), reps=20),
         "library_ms": time_ms(lib, reps=20),
         "bound_ms": max(t_bytes, t_ops),
@@ -246,7 +292,7 @@ def tables(st, p2v, scales, aux) -> dict:
 def run_scene(cfg, model, batch, device):
     tb = TL.to_device(batch, device)
     with torch.no_grad():
-        st, p2v, scales, aux = TL.prepare_inputs(cfg, tb)
+        st, p2v, scales, _, aux = TL.prepare_inputs(cfg, tb)
         out = model(st.feats, scales)
         res = infer.to_host(TL.finish(cfg, out, scales, p2v))
     return tables(st, p2v, scales, aux), res
@@ -277,28 +323,30 @@ def check_ties() -> None:
         "the lower index, as numpy and lax.top_k/jnp.argmax do")
 
 
-def capture_convs(fn) -> list:
-    """Run ``fn`` and return the (feats, idx, W) of every sparse conv it
-    makes. The convs still launch the kernel."""
+def capture(fn, name: str) -> list:
+    """Run ``fn`` and return the arguments of every call it makes to
+    ``sc.<name>`` (``conv_forward``, ``conv_dgrad`` or ``conv_wgrad``, the
+    dispatchers of the sparse conv's autograd Function). The calls still
+    launch the kernels."""
     calls = []
-    real = sc.sparse_conv
+    real = getattr(sc, name)
 
-    def recording(feats, idx, w):
-        calls.append((feats, idx, w))
-        return real(feats, idx, w)
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
 
-    sc.sparse_conv = recording
+    setattr(sc, name, recording)
     try:
         fn()
     finally:
-        sc.sparse_conv = real
+        setattr(sc, name, real)
     return calls
 
 
 def main_path_convs(cfg, model, batch) -> list:
     """The kernel against its plain version, timed, on the inputs that the
     10 convs of one config-1 forward give it (this run's rulebooks)."""
-    calls = capture_convs(lambda: run_scene(cfg, model, batch, "cuda"))
+    calls = capture(lambda: run_scene(cfg, model, batch, DEVICE), "conv_forward")
     shapes = [(f.shape[0], w.shape[0], w.shape[1], w.shape[2], f.shape[1], i.shape[-1])
               for f, i, w in calls]
     want = [(cfg.data.batch_size, *c[1:]) for c in CONFIG1_CONVS]
@@ -314,13 +362,13 @@ def main_path_convs(cfg, model, batch) -> list:
 def timed_split(cfg, model, batch, reps: int = 5) -> dict:
     """Warm ms of one scene, split into hierarchy (voxelize + rulebooks),
     backbone and heads (RPN, NMS, RoI, mask painting, devoxelize)."""
-    tb = TL.to_device(batch, "cuda")
+    tb = TL.to_device(batch, DEVICE)
     split = {"hierarchy": [], "backbone": [], "heads": [], "total": []}
     with torch.no_grad():
         for _ in range(reps + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            st, p2v, scales, _ = TL.prepare_inputs(cfg, tb)
+            st, p2v, scales, _, _ = TL.prepare_inputs(cfg, tb)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             outs = model.backbone(st.feats, scales)
@@ -343,11 +391,13 @@ def phase_slice(out_dir: str) -> tuple:
         f"{n_scenes} val scenes, seeded init train.seed={cfg.train.seed}")
 
     # the main path, through the entry point a user calls
-    sc.KERNEL.launches = 0
+    reset_counts()
     infer.main(["--config", CONFIG1, "--num-scenes", str(n_scenes),
-                "--out-dir", os.path.join(out_dir, "infer"), "--device", "cuda"])
+                "--out-dir", os.path.join(out_dir, "infer"), "--device", DEVICE])
     torch.cuda.synchronize()
     launches = sc.KERNEL.launches
+    if counts()[1:] != (0, 0):
+        raise AssertionError(f"inference launched backward kernels: {counts()}")
     forwards = -(-n_scenes // cfg.data.batch_size)
     log(f"  sparse_conv launches in infer.main: {launches} "
         f"({forwards} forwards, 10 expected per forward)")
@@ -362,13 +412,13 @@ def phase_slice(out_dir: str) -> tuple:
     check_ties()
     # the same weights and scenes on the card and on the CPU
     seed = cfg.train.seed
-    m_gpu = TL.build_model(cfg, "cuda", torch.Generator().manual_seed(seed))
+    m_gpu = TL.build_model(cfg, DEVICE, torch.Generator().manual_seed(seed))
     m_cpu = TL.build_model(cfg, "cpu", torch.Generator().manual_seed(seed))
     batches = list(infer.scene_batches(cfg, "val", n_scenes))
     worst = {}
     for i, batch in enumerate(batches):
         before = sc.KERNEL.launches
-        tab_g, res_g = run_scene(cfg, m_gpu, batch, "cuda")
+        tab_g, res_g = run_scene(cfg, m_gpu, batch, DEVICE)
         torch.cuda.synchronize()
         if sc.KERNEL.launches - before != 10:
             raise AssertionError(f"scene {i}: {sc.KERNEL.launches - before} launches, not 10")
@@ -417,12 +467,12 @@ def phase_golden() -> int:
         flat = {k: f[k] for k in f.files}
     spec = json.loads(str(flat.pop("__config__")))
     cfg = load_config(overrides=spec["overrides"])
-    model = TL.build_model(cfg, "cuda")
+    model = TL.build_model(cfg, DEVICE)
     model.load_state_dict(from_flax(*unflatten_variables(flat)))
     kw = dict(spec["scene"])
     batch = synthetic.generate_batch(kw.pop("seed"), kw.pop("batch_size"), **kw)
     before = sc.KERNEL.launches
-    out = infer.to_host(TL.eval_step(cfg, model, TL.to_device(batch, "cuda")))
+    out = infer.to_host(TL.eval_step(cfg, model, TL.to_device(batch, DEVICE)))
     torch.cuda.synchronize()
     launches = sc.KERNEL.launches - before
     inst, scores, pred_cls, pmask = infer.scene_result(out, 0, cfg.model.num_classes)
@@ -446,6 +496,332 @@ def phase_golden() -> int:
     return len(diff)
 
 
+# --------------------------------------------------------------------------
+# phase 3, backward: the dgrad and wgrad kernels against their plain versions
+
+
+def bwd_inputs(k, cin, cout, m_in, m_out, dtype, seed):
+    """Random feats [1, M_in, Cin], cotangent g [1, M_out, Cout], W and a
+    transposed rulebook t_idx [1, K, M_in] with about 30 % of entries -1."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    feats = torch.randn((1, m_in, cin), generator=gen, device=DEVICE).to(dtype)
+    g = torch.randn((1, m_out, cout), generator=gen, device=DEVICE).to(dtype)
+    w = (torch.randn((k, cin, cout), generator=gen, device=DEVICE)
+         * (2.0 / (k * cin)) ** 0.5).to(dtype)
+    rows = torch.randint(0, m_out, (1, k, m_in), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    miss = torch.rand((1, k, m_in), generator=gen, device=DEVICE) < 0.3
+    return feats, torch.where(miss, -1, rows).contiguous(), g, w
+
+
+def measure_dgrad(name, g, t_idx, w) -> dict:
+    """The dgrad: the gather-GEMM kernel on (g, t_idx, Wᵀ), measured as the
+    forward is (``measure_conv``)."""
+    rec = measure_conv(name, g, t_idx, w.transpose(1, 2).contiguous(), kernel=sc.DGRAD)
+    rec["role"] = "dgrad"
+    return rec
+
+
+def wgrad_library_fn(feats, t_idx, g):
+    """The nearest library composition of the wgrad, two calls: a row gather
+    ``g[t_idx]`` ([K, B*M_in, Cout], a zero row for the -1 entries) and one
+    ``torch.matmul`` with featsᵀ [Cin, B*M_in]. Index prep is done once,
+    outside the timing."""
+    b, m_in, cin = feats.shape
+    m_out, cout = g.shape[1], g.shape[2]
+    k = t_idx.shape[1]
+    gz = torch.cat([g.reshape(b * m_out, cout), g.new_zeros((1, cout))])
+    base = torch.arange(b, device=t_idx.device)[:, None, None] * m_out
+    ix = torch.where(t_idx >= 0, t_idx + base, b * m_out).to(torch.int64)
+    ix = ix.permute(1, 0, 2).reshape(k, b * m_in).contiguous()
+    f_t = feats.reshape(b * m_in, cin).t()
+    return lambda: torch.matmul(f_t, gz[ix])
+
+
+def measure_wgrad(name, feats, t_idx, g) -> dict:
+    """The wgrad kernel against its plain version on these inputs, checked
+    bit-identical across two launches, with kernel, plain, library and
+    bound times. The bound counts the bytes of t_idx, feats, g and the f32
+    out, each once, and the products of t_idx's live entries."""
+    dtype = feats.dtype
+    b, m_in, cin = feats.shape
+    cout = g.shape[2]
+    k = t_idx.shape[1]
+    got = sc.WGRAD(feats, t_idx, g)
+    again = sc.WGRAD(feats, t_idx, g)
+    want = sc.sparse_conv_wgrad_reference(feats, t_idx, g)
+    lib = wgrad_library_fn(feats, t_idx, g)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, again))
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    ok = same and torch.allclose(got, want, rtol=WGRAD_RTOL, atol=WGRAD_RTOL * scale)
+    esz = feats.element_size()
+    nnz = int((t_idx >= 0).sum().item())
+    nbytes = t_idx.numel() * 4 + feats.numel() * esz + g.numel() * esz + k * cin * cout * 4
+    flops = 2 * nnz * cin * cout
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    rec = {
+        "conv": name, "role": "wgrad", "dtype": str(dtype).replace("torch.", ""), "K": k,
+        "Cin": cin, "Cout": cout, "M_in": m_in, "M_out": g.shape[1], "live_taps": nnz,
+        "max_abs_err": err, "tol": {"rtol": WGRAD_RTOL, "atol": WGRAD_RTOL * scale},
+        "bit_identical": same, "ok": bool(ok),
+        "kernel_ms": time_ms(lambda: sc.WGRAD(feats, t_idx, g)),
+        "plain_ms": time_ms(lambda: sc.sparse_conv_wgrad_reference(feats, t_idx, g), reps=20),
+        "library_ms": time_ms(lib, reps=20),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+    log(f"  {name:18s} {rec['dtype']:8s} K{k:<2d} {cin:>2d}->{cout:<2d} "
+        f"M {m_in}<-{g.shape[1]} live {nnz / t_idx.numel():.3f}: "
+        f"kernel_ms={rec['kernel_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+        f"library_ms(2 calls)={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}) max_abs_err={err:.3e} bit_identical={same} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    return rec
+
+
+def phase_backward_kernels() -> list:
+    log("[phase 3, backward] dgrad (the gather-GEMM on g, t_idx, Wᵀ; tolerances as "
+        "the forward's) and wgrad (rtol 1e-4, atol 1e-4 x max |plain|; bit-identical "
+        "across two launches) vs their plain versions on random inputs")
+    recs = []
+    shapes = ([(name, *shape, dtype) for dtype in (torch.float32, torch.bfloat16)
+               for name, *shape in CONFIG1_CONVS] + EXTRA_CONVS)
+    for i, (name, k, cin, cout, m_in, m_out, dtype) in enumerate(shapes):
+        feats, t_idx, g, w = bwd_inputs(k, cin, cout, m_in, m_out, dtype, seed=200 + i)
+        recs.append(measure_dgrad(name, g, t_idx, w))
+        recs.append(measure_wgrad(name, feats, t_idx, g))
+    require_ok(recs, "backward kernels, random inputs")
+    return recs
+
+
+# --------------------------------------------------------------------------
+# phase 6: the config-1 training slice on the card, against the CPU
+
+
+def counts() -> tuple:
+    return sc.KERNEL.launches, sc.DGRAD.launches, sc.WGRAD.launches
+
+
+def reset_counts() -> None:
+    sc.KERNEL.launches = sc.DGRAD.launches = sc.WGRAD.launches = 0
+
+
+def grad_errors(grads_a, grads_b, names) -> dict:
+    """max |a - b| / max |b| per parameter."""
+    out = {}
+    for n, a, b in zip(names, grads_a, grads_b):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        out[n] = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+    return out
+
+
+def params_close(got: dict, want: dict, lr_sum: float, what: str) -> dict:
+    diffs = torch.cat([(got[k].detach().float().cpu() - want[k].detach().float().cpu())
+                       .abs().ravel() for k in want])
+    share = (diffs > PARAM_ATOL).float().mean().item()
+    rec = {"max_abs_diff": diffs.max().item(), "share_past_atol": share,
+           "bound": 2 * lr_sum}
+    if rec["max_abs_diff"] > 2 * lr_sum or share > PARAM_OUTLIERS:
+        raise AssertionError(f"{what}: params differ {rec}")
+    return rec
+
+
+def step_split(cfg, state, batch, reps: int = 5) -> dict:
+    """Warm ms of one train step (host clock, synchronised after each
+    stage), split as ``TL.train_step`` runs it: prepare (voxelize,
+    hierarchy, GT), forward (model in training mode and losses), backward,
+    optimizer (``benchmarks/profile_torch_slice.py::train_step``)."""
+    split = [PROF.train_step(cfg, state, batch) for _ in range(reps + 1)]
+    return {k: statistics.median(s[k] for s in split[1:]) for k in split[0]}
+
+
+def main_path_backward(cfg, model, batch) -> tuple:
+    """The dgrad and wgrad kernels against their plain versions, timed, on
+    the inputs that one config-1 train step's backward gives them."""
+    dg = []
+    wg = capture(lambda: dg.extend(capture(
+        lambda: TL.loss_and_grads(cfg, model, batch), "conv_dgrad")), "conv_wgrad")
+    if (len(dg), len(wg)) != PER_STEP[1:]:
+        raise AssertionError(f"{len(dg)} dgrad and {len(wg)} wgrad calls in one step")
+    log("  dgrad and wgrad kernels vs plain versions on the inputs of the main path "
+        "(one config-1 train step, in backward order; tolerances as in phase 3)")
+
+    def name(w):
+        return f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}"
+    d = [measure_dgrad(name(w), g, t, w) for g, t, w in dg]
+    w_ = [measure_wgrad(f"K{t.shape[1]} {f.shape[2]}->{g.shape[2]}", f, t, g)
+          for f, t, g in wg]
+    require_ok(d + w_, "backward kernels, main-path inputs")
+    return d, w_
+
+
+def phase_train(out_dir: str) -> dict:
+    cfg = load_config(CONFIG1)
+    log(f"[phase 6] {cfg.name} training at full width (widths "
+        f"{list(cfg.model.backbone.widths)}, {cfg.data.num_points} points, capacities "
+        f"{list(cfg.scale_capacities())}, {cfg.model.num_classes} classes, AdamW, "
+        f"clip {cfg.train.grad_clip}), seeded init train.seed={cfg.train.seed}")
+    log_path = os.path.join(out_dir, "train_log.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+
+    # the main path, through the entry point a user calls
+    reset_counts()
+    train_cli.main(["--config", CONFIG1, "--set", f"train.total_steps={TRAIN_STEPS}",
+                    "--set", "train.log_every=1", "--device", DEVICE, "--log-file", log_path])
+    torch.cuda.synchronize()
+    launches = counts()
+    want = tuple(TRAIN_STEPS * n for n in PER_STEP)
+    log(f"  launches in train.main over {TRAIN_STEPS} steps (forward, dgrad, wgrad): "
+        f"{launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"train.main launched {launches}, expected {want}")
+    with open(log_path) as f:
+        lines = [json.loads(line) for line in f]
+    steps = [r for r in lines if r["kind"] == "train"]
+    keys = ("rpn_obj", "rpn_box", "roi_cls", "roi_mask", "semantic", "total", "grad_norm")
+    if len(steps) != TRAIN_STEPS or not all(np.isfinite(r[k]) for r in steps for k in keys):
+        raise AssertionError(f"train.main logged {steps}")
+    log("  losses per step: " + json.dumps([{k: round(r[k], 5) for k in ("step",) + keys}
+                                            for r in steps]))
+
+    # the same weights and batches on the card and on the CPU
+    stream = TrainStream(cfg, seed=cfg.train.seed)
+    batches = [next(stream) for _ in range(3)]
+    init = TL.build_model(cfg, "cpu", torch.Generator().manual_seed(cfg.train.seed))
+    names = [n for n, _ in init.named_parameters()]
+    report = {"launches": launches, "losses": steps}
+    for wname, weights in LOSS_WEIGHTS.items():
+        cfg_w = load_config(CONFIG1, {"train": {"loss_weights": weights}})
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            model = copy.deepcopy(init).to(dev)
+            before = counts()
+            res[dev] = TL.loss_and_grads(cfg_w, model, TL.to_device(batches[0], dev,
+                                                                     TL.TRAIN_KEYS))
+            torch.cuda.synchronize()
+            delta = tuple(a - b for a, b in zip(counts(), before))
+            if dev == DEVICE and delta != PER_STEP:
+                raise AssertionError(f"one train step launched {delta}, expected {PER_STEP}")
+        (tg, pg, gg, _), (tc, pc, gc, _) = res[DEVICE], res["cpu"]
+        for k in pc:
+            np.testing.assert_allclose(float(pg[k]), float(pc[k]), rtol=1e-4,
+                                       err_msg=f"{wname} {k}")
+        parts_rel = max(abs(float(pg[k]) - float(pc[k])) / abs(float(pc[k])) for k in pc)
+        errs = grad_errors(gg, gc, names)
+        rest = {n: e for n, e in errs.items() if not n.startswith("roi_head.")}
+        roi = {n: e for n, e in errs.items() if n.startswith("roi_head.")}
+        w_rest, w_roi = max(rest, key=rest.get), max(roi, key=roi.get)
+        log(f"  loss weights {weights}: card vs CPU loss parts within rtol 1e-4 "
+            f"(worst {parts_rel:.3e}; {json.dumps({k: float(pg[k]) for k in pg})}); grads worst "
+            f"|card - cpu| / max|cpu|: {rest[w_rest]:.3e} ({w_rest}; tolerance "
+            f"{GRAD_TOL[wname]}), RoI head {roi[w_roi]:.3e} ({w_roi}; tolerance "
+            f"{GRAD_TOL_ROI_HEAD}); median {statistics.median(errs.values()):.3e}")
+        if rest[w_rest] > GRAD_TOL[wname] or roi[w_roi] > GRAD_TOL_ROI_HEAD:
+            raise AssertionError(f"{wname}: grads differ: {w_rest} {rest[w_rest]}, "
+                                 f"{w_roi} {roi[w_roi]}")
+        report[f"grad_err_{wname}"] = errs
+        report[f"loss_parts_rel_err_{wname}"] = parts_rel
+
+    # params after 3 steps, card and CPU
+    states = {}
+    for dev in (DEVICE, "cpu"):
+        st = TL.init_state(cfg, model=copy.deepcopy(init).to(dev))
+        for b in batches:
+            TL.train_step(cfg, st, TL.to_device(b, dev, TL.TRAIN_KEYS))
+        states[dev] = st
+    lr_sum = sum(TL.make_schedule(cfg)(i) for i in range(3))
+    report["params_after_3"] = params_close(states[DEVICE].model.state_dict(),
+                                            states["cpu"].model.state_dict(), lr_sum,
+                                            "card vs CPU after 3 steps")
+    log(f"  params and BN statistics after 3 steps, card vs CPU: "
+        f"{json.dumps(report['params_after_3'])} (allowed: all within the bound, at "
+        f"most {PARAM_OUTLIERS} of the entries past {PARAM_ATOL})")
+
+    # run to run: one step twice from the same state, on the card and on
+    # the CPU (where the plain versions run)
+    for dev in (DEVICE, "cpu"):
+        runs = [TL.loss_and_grads(cfg, copy.deepcopy(init).to(dev),
+                                  TL.to_device(batches[0], dev, TL.TRAIN_KEYS))
+                for _ in range(2)]
+        rr = {n: (a - b).abs().max().item() for n, a, b in zip(names, runs[0][2], runs[1][2])}
+        report[f"run_to_run_{dev}"] = {"grad_max_abs_diff": max(rr.values()),
+                                       "params_differing": sorted(n for n, v in rr.items() if v),
+                                       "loss": [float(r[0]) for r in runs]}
+        log(f"  run to run, one step's gradients on {dev}: max |diff| "
+            f"{max(rr.values()):.3e}, parameters differing: "
+            f"{sorted(n for n, v in rr.items() if v) or 'none'}; loss "
+            f"{float(runs[0][0])!r} vs {float(runs[1][0])!r}")
+
+    state = TL.init_state(cfg, model=copy.deepcopy(init).to(DEVICE))
+    split = [step_split(cfg, state, TL.to_device(b, DEVICE, TL.TRAIN_KEYS)) for b in batches]
+    report["step_ms"] = {k: statistics.mean(s[k] for s in split) for k in split[0]}
+    log("  warm ms per train step (host clock, synchronised after each stage, median "
+        f"of 5 per batch, mean of {len(split)} batches): "
+        + json.dumps({k: round(v, 3) for k, v in report["step_ms"].items()}))
+    report["dgrad_main_path"], report["wgrad_main_path"] = main_path_backward(
+        cfg, copy.deepcopy(init).to(DEVICE), TL.to_device(batches[0], DEVICE, TL.TRAIN_KEYS))
+    return report
+
+
+# --------------------------------------------------------------------------
+# phase 7: JAX's train trajectory on the card
+
+
+def phase_golden_train() -> dict:
+    with np.load(FIXTURE) as f:
+        flat = {k: f[k] for k in f.files}
+    spec = json.loads(str(flat.pop("__config__")))
+    with np.load(TRAIN_FIXTURE) as f:
+        want = {k: f[k] for k in f.files}
+    meta = json.loads(str(want.pop("__config__")))
+    cfg = load_config(overrides={**spec["overrides"], "train": meta["train"]})
+    model = TL.build_model(cfg, DEVICE)
+    model.load_state_dict(from_flax(*unflatten_variables(flat)))
+    state = TL.init_state(cfg, model=model)
+    kw = dict(spec["scene"])
+    batch = TL.to_device(synthetic.generate_batch(kw.pop("seed"), kw.pop("batch_size"), **kw),
+                         DEVICE, TL.TRAIN_KEYS)
+    worst = {}
+    for i in range(meta["steps"]):
+        _, m = TL.train_step(cfg, state, batch)
+        for k, tol in (("rpn_obj", 1e-4), ("rpn_box", 1e-4), ("roi_cls", 1e-4),
+                       ("roi_mask", 1e-4), ("semantic", 1e-4), ("total", 1e-4),
+                       ("grad_norm", 1e-3)):
+            ref = float(want[f"metrics/{k}"][i])
+            np.testing.assert_allclose(float(m[k]), ref, rtol=tol, err_msg=f"step {i} {k}")
+            worst[k] = max(worst.get(k, 0.0), abs(float(m[k]) - ref) / abs(ref))
+    lr_sum = sum(TL.make_schedule(cfg)(i) for i in range(meta["steps"]))
+    params = params_close(model.state_dict(), from_flax(*unflatten_variables(
+        {k: v for k, v in want.items() if not k.startswith("metrics/")})), lr_sum,
+        "golden train trajectory")
+    log(f"[phase 7] golden_config1_train on the card from the JAX-init weights, "
+        f"{meta['steps']} steps: loss parts within rtol 1e-4 and grad_norm 1e-3 of JAX "
+        f"(worst relative {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}); "
+        f"params and BN statistics {json.dumps(params)}")
+    return {"metrics_rel_err": worst, "params": params}
+
+
+def kernel_entry(name, source, replaces, launches, recs_all, main_path, library, per) -> dict:
+    t_bytes = sum(r["bytes"] for r in main_path) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(r["flops"] for r in main_path) / PEAK_FLOPS[torch.float32] * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in recs_all + main_path),
+        "ms": sum(r["kernel_ms"] for r in main_path),
+        "plain_ms": sum(r["plain_ms"] for r in main_path),
+        "bound_ms": sum(r["bound_ms"] for r in main_path),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": sum(r["library_ms"] for r in main_path),
+        "library": library, "per": per,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of sparse_rcnn_tpu_torch.")
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "chiprun_out", "chip_smoke"),
@@ -456,36 +832,43 @@ def main(argv=None) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     build()
     recs = phase_kernel()
+    bwd_recs = phase_backward_kernels()
     launches, split, main_path = phase_slice(args.out_dir)
     golden_flips = phase_golden()
+    train = phase_train(args.out_dir)
+    golden_train = phase_golden_train()
 
-    t_bytes = sum(r["bytes"] for r in main_path) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(r["flops"] for r in main_path) / PEAK_FLOPS[torch.float32] * 1e3
-    kernels = {"kernels": [{
-        "name": "sparse_conv_fwd",
-        "route": "cuda",
-        "source": "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu",
-        "replaces": "sparse_rcnn_tpu/ops/pallas_conv.py:76",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in recs + main_path),
-        # times: sums over the 10 convs of one config-1 forward (f32), on
-        # the inputs the main path gave them
-        "ms": sum(r["kernel_ms"] for r in main_path),
-        "plain_ms": sum(r["plain_ms"] for r in main_path),
-        "bound_ms": sum(r["bound_ms"] for r in main_path),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": sum(r["library_ms"] for r in main_path),
-        "library": "feats[idx] im2col gather + torch.matmul (two calls)",
-        "per": "one config-1 forward (10 convs, f32, main-path inputs); per-conv "
-               f"records in {os.path.relpath(os.path.join(args.out_dir, 'kernels.json'), ROOT)}",
-    }]}
+    src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
+    records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
+    fwd, dgrad, wgrad = train["launches"]
+    kernels = {"kernels": [
+        dict(kernel_entry(
+            "sparse_conv_fwd", src, "sparse_rcnn_tpu/ops/pallas_conv.py:76", fwd, recs,
+            main_path, "feats[idx] im2col gather + torch.matmul (two calls)",
+            "one config-1 forward (10 convs, f32, inference main-path inputs); "
+            f"launches: train.main, {TRAIN_STEPS} steps; per-conv records in {records}"),
+            launches_by_path={"infer.main": launches, "train.main": fwd}),
+        kernel_entry(
+            "sparse_conv_dgrad", src, "sparse_rcnn_tpu/ops/sparse_conv.py:536", dgrad,
+            [r for r in bwd_recs if r["role"] == "dgrad"], train["dgrad_main_path"],
+            "g[t_idx] im2col gather + torch.matmul with W^T (two calls)",
+            "one config-1 train step (9 dgrads, f32, main-path inputs); launches: "
+            f"train.main, {TRAIN_STEPS} steps"),
+        kernel_entry(
+            "sparse_conv_wgrad", src, "sparse_rcnn_tpu/ops/sparse_conv.py:542", wgrad,
+            [r for r in bwd_recs if r["role"] == "wgrad"], train["wgrad_main_path"],
+            "g[t_idx] gather + torch.matmul with feats^T (two calls)",
+            "one config-1 train step (10 wgrads, f32, main-path inputs); launches: "
+            f"train.main, {TRAIN_STEPS} steps"),
+    ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "convs_random": recs, "convs_main_path": main_path,
-              "slice_ms_per_scene": split,
-              "golden_instance_points_differing": golden_flips}
+              "backward_random": bwd_recs, "slice_ms_per_scene": split,
+              "golden_instance_points_differing": golden_flips,
+              "train": train, "golden_train": golden_train}
     with open(os.path.join(args.out_dir, "kernels.json"), "w") as f:
         json.dump(record, f, indent=1)
-    log(f"[phase 6] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[phase 8] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,15 @@
 """The two-stage detector: backbone → RPN → RoI crop → mask/cls heads
-(port of ``models/detector.py``, inference forward).
+(port of ``models/detector.py``).
 
-Static shapes end to end; every output carries a validity mask. The
-training-only GT injection into the proposal slots comes with the training
-slice (ROADMAP §1 item 9): a module in training mode refuses to run.
+Static shapes end to end; every output carries a validity mask. In
+training mode (``.train()``) the backbone's BN normalises with batch
+statistics, and given GT boxes the forward overwrites the last proposal
+slots with them (the JAX package's Fast-R-CNN-style GT injection).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -48,16 +49,18 @@ class SparseRCNN(nn.Module):
         self.semantic = (SemanticHead(bb.widths[0], cfg.num_classes)
                          if cfg.use_semantic_head else None)
 
-    def forward(self, feats: torch.Tensor, scales: List[ScaleSet]) -> Dict[str, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "SparseRCNN training forward (GT injection) comes with the "
-                "training slice — ROADMAP §1 item 9; call .eval() first")
+    def forward(self, feats: torch.Tensor, scales: List[ScaleSet],
+                gt_boxes: Optional[torch.Tensor] = None,
+                gt_boxes_valid: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         outs = self.backbone(feats, scales)
-        return self.heads(outs, scales)
+        return self.heads(outs, scales, gt_boxes, gt_boxes_valid)
 
-    def heads(self, outs: List[torch.Tensor], scales: List[ScaleSet]) -> Dict[str, torch.Tensor]:
-        """Everything after the backbone, on its per-scale outputs ``outs``."""
+    def heads(self, outs: List[torch.Tensor], scales: List[ScaleSet],
+              gt_boxes: Optional[torch.Tensor] = None,
+              gt_boxes_valid: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Everything after the backbone, on its per-scale outputs ``outs``.
+        ``gt_boxes`` [B, I, 6] and ``gt_boxes_valid`` bool[B, I] are
+        injected into the proposals in training mode only."""
         cfg = self.cfg
         rpn_obj, rpn_boxes, rpn_deltas, rpn_masks = [], [], [], []
         for s in self.rpn_scales:
@@ -73,6 +76,17 @@ class SparseRCNN(nn.Module):
         props, scores, pmask = select_proposals(
             torch.cat(rpn_obj, 1), torch.cat(rpn_boxes, 1),
             torch.cat(rpn_masks, 1), cfg.rpn)
+        if self.training and gt_boxes is not None:
+            # Fast-R-CNN-style GT injection: overwrite the lowest-scored
+            # proposal slots with GT boxes so the RoI heads see foreground
+            # from step 0
+            p = props.shape[1]
+            n_inject = min(gt_boxes.shape[1], p // 2)
+            gtb, gtv = gt_boxes[:, :n_inject], gt_boxes_valid[:, :n_inject]
+            keep = p - n_inject
+            props = torch.cat([props[:, :keep], gtb], dim=1)
+            scores = torch.cat([scores[:, :keep], torch.where(gtv, 0.0, -1e9)], dim=1)
+            pmask = torch.cat([pmask[:, :keep], gtv], dim=1)
         crop_boxes = expand_boxes(props, cfg.roi.expand)
         roi_feats = torch.stack([
             roi_ops.roi_crop(c, n, f, bx, cfg.roi.grid_size, stride=1)
@@ -97,14 +111,22 @@ class SparseRCNN(nn.Module):
         return out
 
 
-def paint_instance_masks(outputs: Dict[str, torch.Tensor],
-                         scales: List[ScaleSet]) -> torch.Tensor:
-    """Per-proposal mask logits at every stride-1 voxel center, [B, P, M0];
-    voxels outside the crop box get -1e9."""
+def paint_instance_masks(outputs: Dict[str, torch.Tensor], scales: List[ScaleSet],
+                         masked: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-proposal mask logits at every stride-1 voxel center.
+
+    Returns (voxel_mask_logits [B, P, M0], inside bool[B, P, M0]). With
+    ``masked=True`` (inference) voxels outside the crop box get -1e9; with
+    ``masked=False`` the raw sampled logits are returned (the training loss
+    weights outside voxels to zero instead: the same sampling path, so train
+    and eval see the same mask geometry).
+    """
     centers = scales[0].coords.to(torch.float32) + 0.5
     per = [sample_mask_at_positions(ml, bx, c) for ml, bx, c in
            zip(outputs["mask_logits"], outputs["crop_boxes"], centers)]
     logits = torch.stack([p[0] for p in per])
     inside = torch.stack([p[1] for p in per])
-    return torch.where(inside, logits, torch.tensor(-1e9, dtype=logits.dtype,
-                                                    device=logits.device))
+    if masked:
+        logits = torch.where(inside, logits, torch.tensor(-1e9, dtype=logits.dtype,
+                                                          device=logits.device))
+    return logits, inside

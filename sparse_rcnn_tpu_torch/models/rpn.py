@@ -12,6 +12,22 @@ from ..ops import nms as nms_ops
 from .layers import MLP, Dense
 
 
+def encode_box_targets(coords: torch.Tensor, gt_boxes: torch.Tensor, box_norm: float,
+                       stride: int) -> torch.Tensor:
+    """Inverse of the head's decoding: regression targets for matched voxels.
+
+    coords int32[..., 3] (at ``stride``), gt_boxes float[..., 6] → [..., 6]
+    (d_center, d_logsize) in the head's normalised parameterisation.
+    """
+    norm = box_norm * stride
+    vc = (coords.to(torch.float32) + 0.5) * stride
+    gt_center = (gt_boxes[..., :3] + gt_boxes[..., 3:]) / 2
+    gt_size = torch.clamp(gt_boxes[..., 3:] - gt_boxes[..., :3], min=1e-4)
+    d_center = (gt_center - vc) / norm
+    d_size = torch.log(gt_size / norm)
+    return torch.cat([d_center, d_size], dim=-1)
+
+
 class RPNHead(nn.Module):
     """feats [B, M, C] → (obj_logits [B, M], boxes [B, M, 6], deltas [B, M, 6])."""
 

@@ -1,4 +1,5 @@
-"""Sparse convolution over gather-form rulebooks (port of ``ops/sparse_conv.py``).
+"""Sparse convolution over gather-form rulebooks, forward and backward
+(port of ``ops/sparse_conv.py``).
 
     out[b, i] = Σ_k (idx[b, k, i] ≥ 0 ? feats[b, idx[b, k, i]] : 0) @ W[k]
 
@@ -6,14 +7,23 @@ Shapes: feats [B, M_in, Cin], idx int32[B, K, M_out] (-1 = no neighbour),
 W [K, Cin, Cout] → out [B, M_out, Cout], summed in float32 and returned in
 promote(feats, W).
 
-On a CUDA tensor :func:`sparse_conv` launches the hand-written fused
-gather-GEMM kernel ``csrc/sparse_conv.cu`` (the port of the TPU kernel
-``sparse_rcnn_tpu/ops/pallas_conv.py::tap_accumulate_matmul``), built with
-``nvcc`` at first use into ``sparse_rcnn_tpu_torch/_build/`` and bound with
-``ctypes``. On a CPU tensor it runs the plain version
-:func:`sparse_conv_reference`. There is no fallback: a CUDA tensor gets the
-kernel or an exception. Forward only; the backward kernels come with the
-training slice.
+The backward (:class:`SparseConvFunction`, the JAX package's custom VJP
+``_bwd``/``_bwd_t``) is scatter-free. With ``t_idx[k]`` the per-tap
+transpose of ``idx[k]`` (``t_idx[k, j] = i`` iff ``idx[k, i] = j``):
+
+    d_feats[j] = Σ_k g[t_idx[k, j]] @ W[k]ᵀ       (dgrad)
+    d_W[k]     = Σ_j feats[j]ᵀ ⊗ g[t_idx[k, j]]   (wgrad)
+
+On a CUDA tensor these run on the hand-written kernels of
+``csrc/sparse_conv.cu`` (built with ``nvcc`` at first use into
+``sparse_rcnn_tpu_torch/_build/`` and bound with ``ctypes``): the fused
+gather-GEMM, the port of the TPU kernel
+``sparse_rcnn_tpu/ops/pallas_conv.py::tap_accumulate_matmul``, for the
+forward and (on g, t_idx, Wᵀ) for the dgrad; a two-pass deterministic
+kernel for the wgrad. On a CPU tensor they run the plain versions
+:func:`sparse_conv_reference` and :func:`sparse_conv_wgrad_reference`.
+There is no fallback: a CUDA tensor gets the kernels or an exception.
+``KERNEL``, ``DGRAD`` and ``WGRAD`` count the launches of each role.
 """
 
 from __future__ import annotations
@@ -27,9 +37,15 @@ from pathlib import Path
 
 import torch
 
+from . import rulebook as rb
+
 _SRC = Path(__file__).resolve().parent / "csrc" / "sparse_conv.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# wgrad row chunks: at least 256 rows each, at most 256 chunks per scene
+# (the partials buffer is K · chunks · Cin · Cout f32), 32-row aligned
+_WGRAD_MIN_ROWS = 256
+_WGRAD_MAX_CHUNKS = 256
 
 
 def sparse_conv_reference(feats: torch.Tensor, idx: torch.Tensor,
@@ -53,6 +69,28 @@ def sparse_conv_reference(feats: torch.Tensor, idx: torch.Tensor,
     return acc.to(out_dtype)
 
 
+def sparse_conv_wgrad_reference(feats: torch.Tensor, t_idx: torch.Tensor,
+                                g: torch.Tensor) -> torch.Tensor:
+    """The plain wgrad: per tap, a masked gather of ``g`` by ``t_idx[:, k]``
+    and one f32 einsum with ``feats``, summed over scenes and rows.
+    feats [B, M_in, Cin], t_idx [B, K, M_in], g [B, M_out, Cout] →
+    f32 [K, Cin, Cout]."""
+    b, m_in, cin = feats.shape
+    m_out, cout = g.shape[1], g.shape[2]
+    k_taps = t_idx.shape[1]
+    out = torch.zeros((k_taps, cin, cout), dtype=torch.float32, device=feats.device)
+    if m_out == 0 or m_in == 0:
+        return out
+    f = feats.to(torch.float32)
+    for k in range(k_taps):
+        ix = t_idx[:, k, :].to(torch.int64)
+        hit = (ix >= 0) & (ix < m_out)
+        rows = ix.clamp(0, m_out - 1)[..., None].expand(b, m_in, cout)
+        gk = torch.gather(g, 1, rows).to(torch.float32) * hit[..., None]
+        out[k] = torch.einsum("bmc,bmd->cd", f, gk)
+    return out
+
+
 def build_kernel() -> tuple:
     """Compile ``csrc/sparse_conv.cu`` for sm_90a unless a library built from
     the same source exists. Returns (path of the .so, nvcc's messages)."""
@@ -74,27 +112,43 @@ def build_kernel() -> tuple:
     return so, res.stdout + res.stderr
 
 
+class _Library:
+    """The built CUDA library, loaded once, with its two entry points typed."""
+
+    def __init__(self):
+        self._lib = None
+
+    def get(self):
+        if self._lib is None:
+            so, _ = build_kernel()
+            lib = ctypes.CDLL(str(so))
+            lib.sparse_conv_forward.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                                                + [ctypes.c_void_p])
+            lib.sparse_conv_forward.restype = ctypes.c_int
+            lib.sparse_conv_wgrad.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                                              + [ctypes.c_void_p])
+            lib.sparse_conv_wgrad.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+
+_LIB = _Library()
+
+
 class SparseConvKernel:
-    """The built CUDA library and a count of its launches.
+    """The fused gather-GEMM kernel and a count of its launches.
 
     ``launches`` is a plain integer that goes up by one for each launch of
     the kernel and nowhere else, so that a run can show that its convs went
-    through the kernel.
+    through the kernel. The forward and the dgrad each have an instance of
+    their own (``KERNEL`` and ``DGRAD``), so their launches count apart.
     """
 
     def __init__(self):
         self.launches = 0
-        self._fn = None
 
     def load(self):
-        if self._fn is None:
-            so, _ = build_kernel()
-            fn = ctypes.CDLL(str(so)).sparse_conv_forward
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+        return _LIB.get().sparse_conv_forward
 
     def __call__(self, feats: torch.Tensor, idx: torch.Tensor,
                  weights: torch.Tensor) -> torch.Tensor:
@@ -117,6 +171,69 @@ class SparseConvKernel:
         return out
 
 
+def wgrad_chunks(m_in: int) -> tuple:
+    """(rows per chunk, chunks per scene) of the wgrad kernel's first pass:
+    a function of the shape alone, so the sum order never changes."""
+    n = max(1, min(_WGRAD_MAX_CHUNKS, -(-m_in // _WGRAD_MIN_ROWS)))
+    per_chunk = -(-m_in // n)
+    rows = -(-per_chunk // 32) * 32
+    return rows, -(-m_in // rows)
+
+
+class SparseConvWgradKernel:
+    """The two-pass deterministic wgrad kernel and a count of its launches
+    (one per call: both passes are one launch of the wrapper)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def load(self):
+        return _LIB.get().sparse_conv_wgrad
+
+    def __call__(self, feats: torch.Tensor, t_idx: torch.Tensor,
+                 g: torch.Tensor) -> torch.Tensor:
+        """feats [B, M_in, Cin], t_idx int32 [B, K, M_in], g [B, M_out, Cout]
+        → d_W f32 [K, Cin, Cout]."""
+        _check_wgrad_args(feats, t_idx, g)
+        b, m_in, cin = feats.shape
+        m_out, cout = g.shape[1], g.shape[2]
+        k = t_idx.shape[1]
+        if b == 0 or m_in == 0 or m_out == 0:
+            return torch.zeros((k, cin, cout), dtype=torch.float32, device=feats.device)
+        rows, n_chunks = wgrad_chunks(m_in)
+        partials = torch.empty((k, b * n_chunks, cin, cout), dtype=torch.float32,
+                               device=feats.device)
+        out = torch.empty((k, cin, cout), dtype=torch.float32, device=feats.device)
+        fn = self.load()
+        with torch.cuda.device(feats.device):
+            stream = torch.cuda.current_stream(feats.device).cuda_stream
+            err = fn(feats.data_ptr(), t_idx.data_ptr(), g.data_ptr(),
+                     partials.data_ptr(), out.data_ptr(), b, m_in, m_out, k, cin,
+                     cout, rows, n_chunks, _DTYPE_CODE[feats.dtype], stream)
+        if err != 0:
+            raise RuntimeError(f"sparse_conv wgrad kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return out
+
+
+def _check_common(names, tensors, int_name, ints):
+    if not all(t.device == tensors[0].device for t in tensors + (ints,)) \
+            or tensors[0].device.type != "cuda":
+        raise ValueError(f"sparse_conv kernel: {', '.join(names + (int_name,))} "
+                         "must be on one CUDA device")
+    if tensors[0].dtype not in _DTYPE_CODE or tensors[1].dtype != tensors[0].dtype:
+        raise TypeError(f"sparse_conv kernel takes float32 or bfloat16 {names[0]} and "
+                        f"{names[1]} of one type, got {tensors[0].dtype} and "
+                        f"{tensors[1].dtype}")
+    if ints.dtype != torch.int32:
+        raise TypeError(f"sparse_conv kernel takes int32 {int_name}, got {ints.dtype}")
+    for name, t in zip(names + (int_name,), tensors + (ints,)):
+        if not t.is_contiguous():
+            raise ValueError(f"sparse_conv kernel: {name} must be contiguous")
+    if max(sum((tuple(t.shape) for t in tensors + (ints,)), ())) >= 2 ** 31:
+        raise ValueError("sparse_conv kernel: a dimension exceeds int32")
+
+
 def _check_cuda_args(feats, idx, weights):
     if feats.dim() != 3 or idx.dim() != 3 or weights.dim() != 3:
         raise ValueError("sparse_conv wants feats [B,M_in,Cin], idx [B,K,M_out], "
@@ -127,41 +244,99 @@ def _check_cuda_args(feats, idx, weights):
     if idx.shape[0] != b or idx.shape[1] != k or wcin != cin:
         raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, idx "
                          f"{tuple(idx.shape)}, W {tuple(weights.shape)}")
-    if not (feats.device == idx.device == weights.device) or feats.device.type != "cuda":
-        raise ValueError("sparse_conv kernel: feats, idx and W must be on one CUDA device")
-    if feats.dtype not in _DTYPE_CODE or weights.dtype != feats.dtype:
-        raise TypeError(f"sparse_conv kernel takes float32 or bfloat16 feats and W "
-                        f"of one type, got {feats.dtype} and {weights.dtype}")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"sparse_conv kernel takes int32 idx, got {idx.dtype}")
-    for name, t in (("feats", feats), ("idx", idx), ("W", weights)):
-        if not t.is_contiguous():
-            raise ValueError(f"sparse_conv kernel: {name} must be contiguous")
-    if max(feats.shape + idx.shape + weights.shape) >= 2 ** 31:
-        raise ValueError("sparse_conv kernel: a dimension exceeds int32")
+    _check_common(("feats", "W"), (feats, weights), "idx", idx)
 
 
-KERNEL = SparseConvKernel()
+def _check_wgrad_args(feats, t_idx, g):
+    if feats.dim() != 3 or t_idx.dim() != 3 or g.dim() != 3:
+        raise ValueError("sparse_conv wgrad wants feats [B,M_in,Cin], t_idx "
+                         f"[B,K,M_in], g [B,M_out,Cout]; got {tuple(feats.shape)}, "
+                         f"{tuple(t_idx.shape)}, {tuple(g.shape)}")
+    if (t_idx.shape[0] != feats.shape[0] or g.shape[0] != feats.shape[0]
+            or t_idx.shape[2] != feats.shape[1] or t_idx.shape[1] > 65535):
+        raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, t_idx "
+                         f"{tuple(t_idx.shape)}, g {tuple(g.shape)}")
+    _check_common(("feats", "g"), (feats, g), "t_idx", t_idx)
 
 
-def sparse_conv(feats: torch.Tensor, idx: torch.Tensor,
-                weights: torch.Tensor) -> torch.Tensor:
-    """Sparse conv: the CUDA kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+KERNEL = SparseConvKernel()          # forward launches
+DGRAD = SparseConvKernel()           # dgrad launches (the same kernel on g, t_idx, Wᵀ)
+WGRAD = SparseConvWgradKernel()      # wgrad launches
+
+
+def conv_forward(feats, idx, weights):
+    """The forward: the kernel on a CUDA tensor, the plain version on a CPU one."""
     if feats.device.type == "cpu":
         return sparse_conv_reference(feats, idx, weights)
     return KERNEL(feats, idx, weights)
 
 
+def conv_dgrad(g, t_idx, weights):
+    """d_feats [B, M_in, Cin] in g's dtype from the cotangent g [B, M_out, Cout]:
+    the forward's gather-GEMM on (g, t_idx, Wᵀ)."""
+    w_t = weights.transpose(1, 2).to(g.dtype).contiguous()      # [K, Cout, Cin]
+    if g.device.type == "cpu":
+        return sparse_conv_reference(g, t_idx, w_t)
+    return DGRAD(g, t_idx, w_t)
+
+
+def conv_wgrad(feats, t_idx, g):
+    """d_W f32 [K, Cin, Cout]: the wgrad kernel on a CUDA tensor, the plain
+    version on a CPU one."""
+    if feats.device.type == "cpu":
+        return sparse_conv_wgrad_reference(feats, t_idx, g)
+    return WGRAD(feats, t_idx, g)
+
+
+def transpose_rulebooks(idx: torch.Tensor, m_in: int) -> torch.Tensor:
+    """Per-scene :func:`.rulebook.transpose_rulebook`: [B, K, M_out] → [B, K, M_in]."""
+    return torch.stack([rb.transpose_rulebook(ix, m_in) for ix in idx])
+
+
+class SparseConvFunction(torch.autograd.Function):
+    """Sparse conv with the gather-form backward of the JAX package's
+    ``sparse_conv``/``sparse_conv_t`` custom VJP: the cotangent is cast to
+    the feats dtype; the dgrad (skipped when the feats need no gradient) is
+    returned in the feats dtype; the wgrad is summed in f32 and returned in
+    the weights' dtype; the index arrays get no gradient. Without a
+    ``t_idx`` the backward transposes ``idx`` itself."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, t_idx, weights):
+        ctx.save_for_backward(feats, idx, t_idx, weights)
+        return conv_forward(feats, idx, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, idx, t_idx, weights = ctx.saved_tensors
+        g = g.to(feats.dtype).contiguous()
+        if t_idx is None:
+            t_idx = transpose_rulebooks(idx, feats.shape[1])
+        d_f = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_f = conv_dgrad(g, t_idx, weights).to(feats.dtype)
+        if ctx.needs_input_grad[3]:
+            d_w = conv_wgrad(feats, t_idx, g).to(weights.dtype)
+        return d_f, None, None, d_w
+
+
+def sparse_conv(feats: torch.Tensor, idx: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
+    """Sparse conv, differentiable in feats and W: the CUDA kernels on a CUDA
+    tensor, the plain versions on a CPU tensor."""
+    return SparseConvFunction.apply(feats, idx, None, weights)
+
+
 def sparse_conv_t(feats: torch.Tensor, idx: torch.Tensor, t_idx: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
     """Sparse conv with the caller's transposed rulebook ``t_idx``
-    [B, K, M_in] (t_idx[k] is the per-tap transpose of idx[k]).
-
-    The forward equals :func:`sparse_conv`; ``t_idx`` is what the gather-form
-    backward of the training slice consumes, and is only checked here.
+    [B, K, M_in] (t_idx[k] is the per-tap transpose of idx[k]; the
+    rulebook dualities give it for free: ``subm_idx`` flipped along K for
+    a submanifold conv, ``up_idx`` for a down conv and ``down_idx`` for an
+    up conv). The forward equals :func:`sparse_conv`; the backward's dgrad
+    and wgrad gather through ``t_idx`` instead of transposing ``idx``.
     """
     want = (idx.shape[0], idx.shape[1], feats.shape[1])
     if tuple(t_idx.shape) != want:
         raise ValueError(f"t_idx shape {tuple(t_idx.shape)}, expected {want}")
-    return sparse_conv(feats, idx, weights)
+    return SparseConvFunction.apply(feats, idx, t_idx.contiguous(), weights)

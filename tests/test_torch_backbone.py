@@ -50,7 +50,7 @@ def setup():
                  "voxel_size": [0.15, 0.15, 0.15]},
         "model": {"backbone": {"widths": list(WIDTHS)}}})
     b = synthetic.generate_batch(2, 2, num_points=2048)
-    st, _, scales, _ = TL.prepare_inputs(cfg, TL.to_device(b, "cpu"))
+    st, _, scales, _, _ = TL.prepare_inputs(cfg, TL.to_device(b, "cpu"))
 
     @jax.jit
     def tables(points, feats, valid):

@@ -18,6 +18,10 @@ import sparse_rcnn_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+need = {pkg.__name__ + "." + m for m in (
+    "train.__main__", "train.loop", "data.gt", "data.augment", "data.pipeline",
+    "models.targets", "models.losses")}
+assert need <= set(names), sorted(need - set(names))
 import chip_smoke
 import tests.test_torch_kernel_cuda
 import benchmarks.profile_torch_slice
@@ -38,6 +42,12 @@ def test_port_imports_no_jax():
     res = _run(["-c", _IMPORT_ALL])
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[0]) >= 20
+
+
+def test_train_cli_help():
+    res = _run(["-m", "sparse_rcnn_tpu_torch.train", "--help"])
+    assert res.returncode == 0, res.stderr
+    assert "--log-file" in res.stdout and "ROADMAP" in res.stdout
 
 
 def test_chip_smoke_help():

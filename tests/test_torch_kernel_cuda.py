@@ -1,4 +1,5 @@
-"""The port's CUDA sparse-conv kernel against its plain version, on the card.
+"""The port's CUDA sparse-conv kernels (forward, dgrad, wgrad) against their
+plain versions, on the card.
 
 This file imports neither jax nor the JAX package, so that it also runs on a
 machine that has a card and no JAX. ``tests/conftest.py`` imports jax, so
@@ -48,6 +49,25 @@ def make_inputs(seed, k, cin, cout, m_in, m_out, batch=2):
     return feats, idx, w
 
 
+def make_rulebook_inputs(seed, k, cin, cout, m_in, m_out, batch=2):
+    """Random feats/W and a rulebook idx [B, K, M_out] that is injective per
+    tap, as every conv rulebook is (about 70 % of min(M_in, M_out) pairs
+    live), with its per-tap transpose t_idx [B, K, M_in]."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(batch, m_in, cin)).astype(np.float32)
+    w = (rng.normal(size=(k, cin, cout)) * np.sqrt(2.0 / (k * cin))).astype(np.float32)
+    idx = np.full((batch, k, m_out), -1, np.int32)
+    t_idx = np.full((batch, k, m_in), -1, np.int32)
+    live = int(0.7 * min(m_in, m_out))
+    for b in range(batch):
+        for t in range(k):
+            outs = rng.choice(m_out, live, replace=False)
+            ins = rng.choice(m_in, live, replace=False)
+            idx[b, t, outs] = ins
+            t_idx[b, t, ins] = outs
+    return feats, idx, t_idx, w
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -83,3 +103,57 @@ def test_cuda_kernel_refuses_mixed_dtypes(cuda_device):
     with pytest.raises(TypeError):
         SC.sparse_conv(f, ix, tw)
     assert SC.KERNEL.launches == before
+
+
+# the backward kernels: wgrad sums up to B * M_in products per entry in
+# another order than the plain version's einsum, so f32 and bf16 inputs
+# alike (bf16 products are exact in f32) are held to 1e-4 of the largest
+# entry; the dgrad is the forward kernel and keeps the forward's tolerances
+def _wgrad_close(got, want):
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_cuda_backward_kernels_match_reference(cuda_device, case):
+    k, cin, cout, m_in, m_out, dt = case
+    feats, idx, t_idx, w = make_rulebook_inputs(sum(case[:5]), k, cin, cout, m_in, m_out)
+    rng = np.random.default_rng(1)
+    g = torch.from_numpy(rng.normal(size=(2, m_out, cout)).astype(np.float32))
+    f = torch.from_numpy(feats).to(cuda_device, TORCH_DT[dt])
+    ti = torch.from_numpy(t_idx).to(cuda_device)
+    tw = torch.from_numpy(w).to(cuda_device, TORCH_DT[dt])
+    g = g.to(cuda_device, TORCH_DT[dt])
+    before = (SC.DGRAD.launches, SC.WGRAD.launches)
+    d_f = SC.conv_dgrad(g, ti, tw)
+    d_w = SC.conv_wgrad(f, ti, g)
+    d_w2 = SC.conv_wgrad(f, ti, g)
+    torch.cuda.synchronize()
+    assert (SC.DGRAD.launches, SC.WGRAD.launches) == (before[0] + 1, before[1] + 2)
+    assert d_f.dtype == TORCH_DT[dt] and d_f.shape == (2, m_in, cin)
+    assert d_w.dtype == torch.float32 and d_w.shape == (k, cin, cout)
+    assert torch.equal(d_w, d_w2)                 # no atomics: bit-identical
+    w_t = tw.transpose(1, 2).contiguous()
+    torch.testing.assert_close(d_f.float(), SC.sparse_conv_reference(g, ti, w_t).float(),
+                               **TOL[dt])
+    _wgrad_close(d_w, SC.sparse_conv_wgrad_reference(f, ti, g))
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_conv_has_grad_fn(cuda_device):
+    feats, idx, t_idx, w = make_rulebook_inputs(4, 27, 16, 16, 300, 300)
+    f = torch.from_numpy(feats).to(cuda_device).requires_grad_(True)
+    tw = torch.from_numpy(w).to(cuda_device).requires_grad_(True)
+    ix = torch.from_numpy(idx).to(cuda_device)
+    out = SC.sparse_conv_t(f, ix, torch.from_numpy(t_idx).to(cuda_device), tw)
+    assert out.grad_fn is not None
+    before = (SC.DGRAD.launches, SC.WGRAD.launches)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (SC.DGRAD.launches, SC.WGRAD.launches) == (before[0] + 1, before[1] + 1)
+    fc = f.detach().cpu().requires_grad_(True)
+    wc = tw.detach().cpu().requires_grad_(True)
+    SC.sparse_conv_t(fc, ix.cpu(), torch.from_numpy(t_idx), wc).square().sum().backward()
+    torch.testing.assert_close(f.grad.cpu(), fc.grad, **TOL["float32"])
+    _wgrad_close(tw.grad.cpu(), wc.grad)

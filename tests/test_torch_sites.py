@@ -148,7 +148,7 @@ def _tables_jax(cfg, b):
 
 def _check_hierarchy(cfg, b):
     jc, jp2v, jscales, jhovf = _tables_jax(cfg, b)
-    st, p2v, scales, aux = TL.prepare_inputs(cfg, TL.to_device(b, "cpu"))
+    st, p2v, scales, _, aux = TL.prepare_inputs(cfg, TL.to_device(b, "cpu"))
     eq(st.coords, jc, "coords")
     eq(p2v, jp2v, "p2v")
     eq(aux["hierarchy_overflow"], jhovf.sum(), "hierarchy overflow")
