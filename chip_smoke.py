@@ -9,9 +9,11 @@ nonzero:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the sparse-conv kernels from ``sparse_rcnn_tpu_torch/ops/csrc``;
 3. the forward kernel against its plain version on random inputs at every
-   conv shape of a config-1 forward (f32 and bf16), a ragged M and a
-   config-2-sized shape, with kernel, plain, library and bound times; then
-   the backward kernels (dgrad and wgrad) the same way, the wgrad checked
+   conv shape of a config-1 forward (f32 and bf16), a ragged M, a
+   config-2-sized shape and the edge cases of its dead-tile skip and copy
+   widths (``EDGE_CONVS``), with kernel, plain, library and bound times and
+   the share of (64-row tile, tap) pairs with no live entry; then the
+   backward kernels (dgrad and wgrad) the same way, the wgrad checked
    bit-identical across two launches;
 4. the config-1 inference slice on the card: ``infer.main`` on 3 val scenes
    (the forward count must rise by 10 per forward); tie-breaking of sort
@@ -25,11 +27,11 @@ nonzero:
 6. the config-1 training slice on the card: ``python -m
    sparse_rcnn_tpu_torch.train``'s ``main`` for 5 steps (per step 10
    forward, 9 dgrad and 10 wgrad launches; finite losses); one step's loss
-   parts and gradients and the params after 3 steps, card against CPU; the
-   run-to-run difference of a step's gradients on the card; warm ms per
-   train step split into prepare (with GT), forward (with losses),
-   backward and optimizer; the backward kernels timed on the inputs the
-   main path gave them;
+   parts and gradients and the params after 3 steps, card against CPU; a
+   step's gradients twice from one state, bit-identical on the card and on
+   the CPU; warm ms per train step split into prepare (with GT), forward
+   (with losses), backward and optimizer; the backward kernels timed on the
+   inputs the main path gave them;
 7. the committed weights reproduce JAX's 3-step train trajectory
    ``tests/fixtures/golden_config1_train.npz`` on the card;
 8. a ``kernels`` JSON line, then as the last line
@@ -95,12 +97,29 @@ EXTRA_CONVS = [  # (name, K, Cin, Cout, M_in, M_out, dtype)
     ("ragged_m1000", 27, 16, 16, 1000, 1000, torch.float32),
     ("config2_k27_32x32", 27, 32, 32, 262144, 262144, torch.bfloat16),
 ]
+# (name, K, Cin, Cout, M_in, M_out, live rows per scene): the paths of the
+# gather-GEMM's dead-tile skip and copy widths, as the kernel is launched
+# (for the dgrad, Cin is the cotangent's width), f32 and bf16. Scene b's
+# rows from live_rows[b] * M_out on are -1 on every tap, like the rows past
+# a scene's valid count in a rulebook; "all_dead" is timed against
+# "dead_tail_60" (a dead tile should cost only its read of idx).
+EDGE_CONVS = [
+    ("dead_tail_60", 27, 16, 16, 32768, 32768, (0.6,)),
+    ("all_dead", 27, 16, 16, 32768, 32768, (0.0,)),
+    ("cin3", 27, 3, 16, 32768, 32768, (0.6,)),
+    ("cin24_cout24", 27, 24, 24, 16384, 16384, (1.0,)),
+    ("cout64", 27, 16, 64, 16384, 16384, (1.0,)),
+    ("m_below_tile", 27, 16, 16, 100, 37, (1.0,)),
+    ("b2_mixed", 27, 16, 16, 16384, 16384, (1.0, 0.3)),
+]
+TILE_M = 64                     # output rows per block of the gather-GEMM
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 # wgrad against its plain version: up to B*M products per entry summed in
 # another order (bf16 products are exact in f32): 1e-4 of the largest entry
 WGRAD_RTOL = 1e-4
 TRAIN_STEPS = 5
+SPIN_CYCLES = 2_000_000         # about 1 ms of the card's clock
 PER_STEP = (10, 9, 10)          # forward, dgrad (the stem's input needs none), wgrad
 # card against CPU, one config-1 step, per parameter relative to the
 # largest entry of its gradient. Outside the RoI head: with the mask weight
@@ -127,8 +146,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median of ``reps`` warm runs, each timed with CUDA events."""
+def time_ms(fn, reps: int = 30, warmup: int = 3, inner: int = 10) -> float:
+    """Median over ``reps`` of the mean of ``inner`` back-to-back warm runs
+    between two CUDA events. Before each, the card spins for about a
+    millisecond (``torch.cuda._sleep``), so that the host has queued the
+    runs before the start event fires: a kernel of a few microseconds is
+    then timed on the card, not at the rate the host launches it, and the
+    events' own cost is spread over ``inner`` runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -136,11 +160,13 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -183,17 +209,36 @@ def build() -> None:
 # phase 3: the kernel against its plain version
 
 
-def conv_inputs(k, cin, cout, m_in, m_out, dtype, seed):
-    """Random feats/W and an idx with about 30 % of entries -1, on the card."""
+def kill_rows(miss, live_rows):
+    """Mark scene b's rows from ``live_rows[b]`` of the last axis on as dead."""
+    m = miss.shape[-1]
+    for b, frac in enumerate(live_rows):
+        miss[b, :, int(frac * m):] = True
+    return miss
+
+
+def conv_inputs(k, cin, cout, m_in, m_out, dtype, seed, live_rows=(1.0,)):
+    """Random feats/W and an idx with about 30 % of entries -1, on the card,
+    one scene per entry of ``live_rows`` (see ``kill_rows``)."""
+    b = len(live_rows)
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    feats = torch.randn((1, m_in, cin), generator=g, device=DEVICE).to(dtype)
+    feats = torch.randn((b, m_in, cin), generator=g, device=DEVICE).to(dtype)
     w = (torch.randn((k, cin, cout), generator=g, device=DEVICE)
          * (2.0 / (k * cin)) ** 0.5).to(dtype)
-    rows = torch.randint(0, m_in, (1, k, m_out), generator=g, device=DEVICE,
+    rows = torch.randint(0, m_in, (b, k, m_out), generator=g, device=DEVICE,
                          dtype=torch.int32)
-    miss = torch.rand((1, k, m_out), generator=g, device=DEVICE) < 0.3
+    miss = kill_rows(torch.rand((b, k, m_out), generator=g, device=DEVICE) < 0.3, live_rows)
     idx = torch.where(miss, -1, rows).contiguous()
     return feats, idx, w
+
+
+def dead_pair_share(idx, m_in) -> float:
+    """Share of the (64-row tile, tap) pairs of idx [B, K, M] with no entry
+    in [0, M_in): the pairs the gather-GEMM skips."""
+    b, k, m = idx.shape
+    live = ((idx >= 0) & (idx < m_in)).to(torch.uint8)
+    live = torch.nn.functional.pad(live, (0, -m % TILE_M)).reshape(b, k, -1, TILE_M)
+    return 1.0 - live.amax(-1).float().mean().item()
 
 
 def library_fn(feats, idx, w):
@@ -236,18 +281,20 @@ def measure_conv(name, feats, idx, w, kernel=sc.KERNEL) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     rec = {
-        "conv": name, "dtype": str(dtype).replace("torch.", ""), "K": k,
+        "conv": name, "dtype": str(dtype).replace("torch.", ""), "K": k, "B": b,
         "Cin": cin, "Cout": cout, "M_in": m_in, "M_out": m_out,
-        "live_taps": nnz, "max_abs_err": err, "tol": TOL[dtype], "ok": bool(ok),
+        "live_taps": nnz, "dead_pair_share": dead_pair_share(idx, m_in),
+        "max_abs_err": err, "tol": TOL[dtype], "ok": bool(ok),
         "kernel_ms": time_ms(lambda: kernel(feats, idx, w)),
-        "plain_ms": time_ms(lambda: sc.sparse_conv_reference(feats, idx, w), reps=20),
+        "plain_ms": time_ms(lambda: sc.sparse_conv_reference(feats, idx, w), reps=20, inner=1),
         "library_ms": time_ms(lib, reps=20),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
     }
     log(f"  {name:18s} {rec['dtype']:8s} K{k:<2d} {cin:>2d}->{cout:<2d} "
-        f"M {m_in}->{m_out} live {nnz / idx.numel():.3f}: "
+        f"M {m_in}->{m_out} B{b} live {nnz / idx.numel():.3f} "
+        f"dead (tile, tap) {rec['dead_pair_share']:.3f}: "
         f"kernel_ms={rec['kernel_ms']:.4f} "
         f"plain_ms={rec['plain_ms']:.4f} library_ms(2 calls)={rec['library_ms']:.4f} "
         f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
@@ -271,8 +318,24 @@ def phase_kernel() -> list:
             recs.append(measure_conv(name, *conv_inputs(*shape, dtype, seed=i)))
     for i, (name, *shape, dtype) in enumerate(EXTRA_CONVS):
         recs.append(measure_conv(name, *conv_inputs(*shape, dtype, seed=100 + i)))
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, *shape, live_rows) in enumerate(EDGE_CONVS):
+            recs.append(measure_conv(name, *conv_inputs(*shape, dtype, seed=300 + i,
+                                                        live_rows=live_rows)))
     require_ok(recs, "random inputs")
+    dead_tile_cost(recs, "forward")
     return recs
+
+
+def dead_tile_cost(recs, role) -> None:
+    """Log the all-dead K27 16->16 case's time beside the same shape with
+    live rows ending at 60 % of M (``EDGE_CONVS``)."""
+    by = {(r["conv"], r["dtype"]): r for r in recs}
+    for dt in ("float32", "bfloat16"):
+        dead, tail = by[("all_dead", dt)], by[("dead_tail_60", dt)]
+        log(f"  {role} {dt}: all -1 idx {dead['kernel_ms']:.4f} ms vs live rows to 60 % "
+            f"of M {tail['kernel_ms']:.4f} ms (ratio {dead['kernel_ms'] / tail['kernel_ms']:.3f}), "
+            f"K{dead['K']} {dead['Cin']}->{dead['Cout']}, M {dead['M_out']}")
 
 
 # --------------------------------------------------------------------------
@@ -500,17 +563,19 @@ def phase_golden() -> int:
 # phase 3, backward: the dgrad and wgrad kernels against their plain versions
 
 
-def bwd_inputs(k, cin, cout, m_in, m_out, dtype, seed):
-    """Random feats [1, M_in, Cin], cotangent g [1, M_out, Cout], W and a
-    transposed rulebook t_idx [1, K, M_in] with about 30 % of entries -1."""
+def bwd_inputs(k, cin, cout, m_in, m_out, dtype, seed, live_rows=(1.0,)):
+    """Random feats [B, M_in, Cin], cotangent g [B, M_out, Cout], W and a
+    transposed rulebook t_idx [B, K, M_in] with about 30 % of entries -1,
+    one scene per entry of ``live_rows`` (see ``kill_rows``)."""
+    b = len(live_rows)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    feats = torch.randn((1, m_in, cin), generator=gen, device=DEVICE).to(dtype)
-    g = torch.randn((1, m_out, cout), generator=gen, device=DEVICE).to(dtype)
+    feats = torch.randn((b, m_in, cin), generator=gen, device=DEVICE).to(dtype)
+    g = torch.randn((b, m_out, cout), generator=gen, device=DEVICE).to(dtype)
     w = (torch.randn((k, cin, cout), generator=gen, device=DEVICE)
          * (2.0 / (k * cin)) ** 0.5).to(dtype)
-    rows = torch.randint(0, m_out, (1, k, m_in), generator=gen, device=DEVICE,
+    rows = torch.randint(0, m_out, (b, k, m_in), generator=gen, device=DEVICE,
                          dtype=torch.int32)
-    miss = torch.rand((1, k, m_in), generator=gen, device=DEVICE) < 0.3
+    miss = kill_rows(torch.rand((b, k, m_in), generator=gen, device=DEVICE) < 0.3, live_rows)
     return feats, torch.where(miss, -1, rows).contiguous(), g, w
 
 
@@ -568,7 +633,8 @@ def measure_wgrad(name, feats, t_idx, g) -> dict:
         "max_abs_err": err, "tol": {"rtol": WGRAD_RTOL, "atol": WGRAD_RTOL * scale},
         "bit_identical": same, "ok": bool(ok),
         "kernel_ms": time_ms(lambda: sc.WGRAD(feats, t_idx, g)),
-        "plain_ms": time_ms(lambda: sc.sparse_conv_wgrad_reference(feats, t_idx, g), reps=20),
+        "plain_ms": time_ms(lambda: sc.sparse_conv_wgrad_reference(feats, t_idx, g), reps=20,
+                            inner=1),
         "library_ms": time_ms(lib, reps=20),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -594,7 +660,15 @@ def phase_backward_kernels() -> list:
         feats, t_idx, g, w = bwd_inputs(k, cin, cout, m_in, m_out, dtype, seed=200 + i)
         recs.append(measure_dgrad(name, g, t_idx, w))
         recs.append(measure_wgrad(name, feats, t_idx, g))
+    # the dgrad on the edge cases, launched at their shapes: its gather reads
+    # g (the conv's Cout wide) through t_idx into the conv's M_in rows
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, k, cin_l, cout_l, m_in_l, m_out_l, live_rows) in enumerate(EDGE_CONVS):
+            _, t_idx, g, w = bwd_inputs(k, cout_l, cin_l, m_out_l, m_in_l, dtype,
+                                        seed=400 + i, live_rows=live_rows)
+            recs.append(measure_dgrad(name, g, t_idx, w))
     require_ok(recs, "backward kernels, random inputs")
+    dead_tile_cost([r for r in recs if r["role"] == "dgrad"], "dgrad")
     return recs
 
 
@@ -743,7 +817,7 @@ def phase_train(out_dir: str) -> dict:
         f"most {PARAM_OUTLIERS} of the entries past {PARAM_ATOL})")
 
     # run to run: one step twice from the same state, on the card and on
-    # the CPU (where the plain versions run)
+    # the CPU (where the plain versions run): bit-identical on both
     for dev in (DEVICE, "cpu"):
         runs = [TL.loss_and_grads(cfg, copy.deepcopy(init).to(dev),
                                   TL.to_device(batches[0], dev, TL.TRAIN_KEYS))
@@ -756,8 +830,11 @@ def phase_train(out_dir: str) -> dict:
             f"{max(rr.values()):.3e}, parameters differing: "
             f"{sorted(n for n, v in rr.items() if v) or 'none'}; loss "
             f"{float(runs[0][0])!r} vs {float(runs[1][0])!r}")
+        if max(rr.values()) != 0 or float(runs[0][0]) != float(runs[1][0]):
+            raise AssertionError(f"one step on {dev} is not bit-identical run to run: "
+                                 f"{report[f'run_to_run_{dev}']}")
 
-    state = TL.init_state(cfg, model=copy.deepcopy(init).to(DEVICE))
+    state =TL.init_state(cfg, model=copy.deepcopy(init).to(DEVICE))
     split = [step_split(cfg, state, TL.to_device(b, DEVICE, TL.TRAIN_KEYS)) for b in batches]
     report["step_ms"] = {k: statistics.mean(s[k] for s in split) for k in split[0]}
     log("  warm ms per train step (host clock, synchronised after each stage, median "
@@ -834,6 +911,13 @@ def main(argv=None) -> int:
     recs = phase_kernel()
     bwd_recs = phase_backward_kernels()
     launches, split, main_path = phase_slice(args.out_dir)
+    dead = next(r for r in recs if (r["conv"], r["dtype"]) == ("all_dead", "float32"))
+    enc = next(r for r in main_path if r["conv"] == "enc0.conv1")
+    dead_vs_main = {"all_dead_ms": dead["kernel_ms"], "enc0.conv1_ms": enc["kernel_ms"],
+                    "ratio": dead["kernel_ms"] / enc["kernel_ms"]}
+    log(f"  forward f32 K27 16->16, M 32768: all -1 idx {dead['kernel_ms']:.4f} ms vs the "
+        f"main path's enc0.conv1 {enc['kernel_ms']:.4f} ms (ratio {dead_vs_main['ratio']:.3f}; "
+        f"dead (tile, tap) pairs there {enc['dead_pair_share']:.3f})")
     golden_flips = phase_golden()
     train = phase_train(args.out_dir)
     golden_train = phase_golden_train()
@@ -863,6 +947,7 @@ def main(argv=None) -> int:
     ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "convs_random": recs, "convs_main_path": main_path,
+              "dead_tile_vs_main_path": dead_vs_main,
               "backward_random": bwd_recs, "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
               "train": train, "golden_train": golden_train}

@@ -8,27 +8,61 @@
 // to HBM by XLA and read back by the kernel; here it is never materialised: each
 // block gathers its rows by rulebook index straight into shared memory.
 //
-// What bounds it on the card: bytes. At the widths this model uses (Cout <= 32 for
-// config 1), the work is K*Cin*Cout*2 flop per output row against ~K*Cin*s bytes of
-// gathered input (s = 4 for f32, 2 for bf16), an arithmetic intensity far below the
-// H100's ~295 flop/byte bf16 ridge and below its f32 ridge (~20) as well. (Counted
-// with each input read once from HBM, the f32 convs at Cout 32 tip to operations on
-// the CUDA cores, which this kernel uses; the bf16 ones stay bytes.) So the design
-// keeps traffic at its minimum: the gathered rows are read once per tap, come from
-// L2 (a scale's feature table is a few MB) into shared memory, the f32 sum stays in
-// registers across all K taps, and the output is written once. wgmma, TMA and a
-// software pipeline are later work; this is the simple, correct first form.
+// What bounds it on the card: bytes. At the widths this model uses (Cin, Cout 3..160),
+// the work is K*Cin*Cout*2 flop per output row against ~K*Cin*s bytes of gathered
+// input (s = 4 for f32, 2 for bf16), an arithmetic intensity far below the H100's
+// ~295 flop/byte bf16 ridge and near or below its f32 ridge (~20). What held the
+// first form of this kernel far from that bound was latency and dead work, so the
+// design is a memory pipeline that pays only for live rows:
+//
+// 1. Indices first, dead tiles out. A block owns 64 output rows of one scene (and a
+//    tile of 16, 32 or 64 output channels). It loads the tile's K x 64 indices once
+//    into shared memory (16-byte loads where M_out allows) and marks out-of-range
+//    entries -1. One barrier (__syncthreads_or) then tells whether any entry is
+//    live: a tile with none writes zeros and exits, with no gather and no product.
+//    Rows past a scene's valid count carry -1 on every tap, so a conv's tail tiles
+//    cost only their index read; the dgrad's transposed rulebook has the same shape
+//    of liveness. A live tile votes per tap and skips its dead taps (exact: a dead
+//    tap adds +0).
+// 2. An asynchronous ring over the live taps. Each stage holds one live tap's
+//    gathered rows (a chunk of 32 input channels) and its W[k] tile. Stage s + 2 is
+//    copied with cp.async (16 bytes where rows allow, else 8 or 4; a bf16 row of odd
+//    width, 2-byte aligned only, is copied by plain loads) while stage s is
+//    multiplied, in a ring of 3 stages. A -1 entry is a copy of source size 0: zeros
+//    land in shared memory and nothing is read from global memory. TMA is not used:
+//    it has no row gather on Hopper, and every row here comes from its own index.
+//    With a few warps an SM, a stage's time is mostly dependent instruction
+//    chains, so the loader keeps them short: where rows of Cin and Cout take
+//    16-byte copies (the common case), each thread's copy slots are worked out
+//    once per block; otherwise slots are dealt with shifts. Offsets within a scene
+//    are 32-bit, dead copies select their source and predicate the copy instead
+//    of branching, and the stages are walked with counters, not division.
+// 3. Products. f32 stays on the CUDA cores (TF32 would lose the digits the f32
+//    checks hold): each thread keeps a 2..8 row x 4 channel register tile and reads
+//    shared memory as float4; at 2 rows (Cout 16) that is 3 bytes of shared memory
+//    a FMA, which the SM's 128 bytes a cycle then bound. bf16 goes to the tensor
+//    cores, mma.sync m16n8k16 with f32 sums, fed by ldmatrix from the ring; the
+//    channel chunk is padded with zeros to 16. At these widths (Cout 16..160)
+//    mma.sync is enough; wgmma (64-row warpgroup products from shared memory) waits
+//    until a config with widths >= 64 is on the main path.
+// 4. Occupancy. 128 threads and at most ~60 KB of shared memory a block, so about 4
+//    blocks fit an SM and a config-1 conv's 384..512 row tiles are resident at once.
+//    On the main path only 35..60 % of them are live (1.4..2.3 a SM), so what is
+//    left is each live block's chain of stages (its loads' instruction chain and
+//    its products' shared-memory reads), not device memory (PERF.md has the
+//    measurements).
 //
 // Numerics: the sum is f32 for f32 and bf16 inputs alike; the output is stored in
 // the input type (bf16 rounded to nearest even). Each tap's partial sum is formed
-// over Cin in ascending order and added to the accumulator in tap order k = 0..K-1,
-// as the plain version (ops/sparse_conv.py::sparse_conv_reference) does. No atomics,
-// no split-K: results are the same from run to run.
+// over Cin and added to the accumulator in tap order k = 0..K-1, as the plain
+// version (ops/sparse_conv.py::sparse_conv_reference) does. No atomics, no split-K:
+// results are the same from run to run.
 //
 // Contract (checked by the Python wrapper): feats [B, M_in, Cin], idx int32
 // [B, K, M_out], W [K, Cin, Cout], out [B, M_out, Cout], all contiguous on one
 // device, feats and W of one type. Any M_out (the ragged last tile is masked), any
-// Cin >= 1, any Cout >= 1. An index outside [0, M_in) counts as no neighbour.
+// Cin >= 1, any Cout >= 1, K up to ~680 (the tile's indices live in shared memory).
+// An index outside [0, M_in) counts as no neighbour.
 //
 // The backward's input gradient (dgrad) is this same kernel, launched by the wrapper
 // on (g, t_idx, W^T): d_feats[j] = sum_k g[t_idx[k, j]] @ W[k]^T, as the JAX package
@@ -40,111 +74,609 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileM = 64;     // output rows per block
-constexpr int kCinChunk = 32;  // input channels staged in shared memory per step
+constexpr int kThreads = 256;     // wgrad block size
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// One block per (tile of kTileM output rows, tile of kCoutTile output channels, scene).
-// Thread t owns column t % kCoutTile and rows t / kCoutTile + r * kRowStep.
+// ---------------------------------------------------------------------------
+// Forward (and dgrad): the gather-GEMM.
+
+constexpr int kFwdThreads = 128;  // 4 warps
+constexpr int kTileM = 64;        // output rows per block
+constexpr int kCinChunk = 32;     // input channels per ring stage
+constexpr int kStages = 3;        // ring depth
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have on sm_90
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return std::is_same<T, float>::value;
+}
+// row strides of a stage, in elements: 144-byte f32 rows put the float4 reads of 8
+// rows on distinct banks; 80-byte bf16 rows (and W rows padded by 16 bytes) keep
+// ldmatrix's 8-row reads free of bank conflicts
+template <typename T>
+__host__ __device__ constexpr int a_stride() {
+  return is_f32<T>() ? kCinChunk + 4 : kCinChunk + 8;
+}
 template <typename T, int kCoutTile>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int w_stride() {
+  return is_f32<T>() ? kCoutTile : kCoutTile + 8;
+}
+// the channels of a stage are padded with zeros to a multiple of this
+template <typename T>
+__host__ __device__ constexpr int chan_pad() {
+  return is_f32<T>() ? 4 : 16;
+}
+template <typename T, int kCoutTile>
+__host__ __device__ constexpr int stage_elems() {
+  return kTileM * a_stride<T>() + kCinChunk * w_stride<T, kCoutTile>();
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copy kBytes (16, 8, 4, or 2 for bf16) from global to shared memory if `make`; if
+// !live, write zeros and read nothing (cp.async with source size 0). The predicate
+// is the copy's own (@p), so a slot without a copy costs no branch. 2 bytes is a
+// plain load and store.
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src, bool live, bool make) {
+  if constexpr (kBytes == 2) {
+    if (make)
+      *static_cast<unsigned short*>(dst) =
+          live ? *static_cast<const unsigned short*>(src) : static_cast<unsigned short>(0);
+  } else if constexpr (kBytes == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %3, 0;\n"
+        " @p cp.async.cg.shared.global [%0], [%1], 16, %2;\n}\n" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(live ? 16u : 0u), "r"(static_cast<int>(make))
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %4, 0;\n"
+        " @p cp.async.ca.shared.global [%0], [%1], %2, %3;\n}\n" ::"r"(smem_u32(dst)),
+        "l"(src), "n"(kBytes), "r"(live ? static_cast<unsigned>(kBytes) : 0u),
+        "r"(static_cast<int>(make))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// fn(r, v, make) for the slots (r, v), r < rows, v < per_row, of one copy, dealt to
+// the threads in row-major order with per_row rounded up to a power of two: the
+// slots step by shifts, not by integer division, and each thread takes its slots
+// in unrolled pairs with a predicate per slot (`make`) instead of a loop with
+// branches, to keep the dependent chain of a stage's loads short.
+template <typename Fn>
+__device__ __forceinline__ void for_slots(int rows, int per_row, int tid, Fn fn) {
+  const int sh = per_row <= 1 ? 0 : 32 - __clz(per_row - 1);
+  const int mask = (1 << sh) - 1;
+  const int total = rows << sh;
+  for (int base = 0; base < total; base += 2 * kFwdThreads) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = base + i * kFwdThreads + tid;
+      fn(min(e >> sh, rows - 1), e & mask, e < total && (e & mask) < per_row);
+    }
+  }
+}
+
+// Tap k's gathered rows: channels [c0, c0 + ccp) of feats[ix[r]], zeros for -1 rows
+// and past Cin (cc channels are real). kBytes divides a row of Cin, so no copy
+// straddles Cin. Offsets within a scene are 32-bit (M_in * Cin < 2^31), and dead
+// copies select their source instead of branching around it.
+template <int kBytes, typename T>
+__device__ __forceinline__ void load_rows(T* a_s, const int* ix, const T* f_b, int c0, int cc,
+                                          int ccp, int cin, int tid) {
+  constexpr int kEl = kBytes / static_cast<int>(sizeof(T));
+  for_slots(kTileM, ccp / kEl, tid, [&](int r, int v, bool make) {
+    const int c = v * kEl;
+    const int j = ix[r];
+    const bool live = (j >= 0) & (c < cc);
+    const unsigned off = live ? static_cast<unsigned>(j * cin + c0 + c) : 0u;
+    copy_async<kBytes>(a_s + r * a_stride<T>() + c, f_b + off, live, make);
+  });
+}
+
+// W[k]'s rows [c0, c0 + ccp) x columns [n0, n0 + kCoutTile) (w_k points at row c0,
+// column n0), zeros past Cin and Cout. kBytes divides a row of Cout.
+template <int kBytes, typename T, int kCoutTile>
+__device__ __forceinline__ void load_w(T* w_s, const T* w_k, int n0, int cc, int ccp, int cout,
+                                       int tid) {
+  constexpr int kEl = kBytes / static_cast<int>(sizeof(T));
+  for_slots(ccp, kCoutTile / kEl, tid, [&](int c, int v, bool make) {
+    const int n = v * kEl;
+    const bool live = (c < cc) & (n0 + n < cout);
+    const unsigned off = live ? static_cast<unsigned>(c * cout + n) : 0u;
+    copy_async<kBytes>(w_s + c * w_stride<T, kCoutTile>() + n, w_k + off, live, make);
+  });
+}
+
+// The loader of the common case, where rows of Cin and of Cout both take 16-byte
+// copies: each thread's (at most 4) slots of the A and W copies are the same in
+// every stage, so they are worked out once, and a stage costs each slot one index
+// read, an offset and a predicated cp.async. The general loader below works the
+// slots and the copy width out in every stage, which takes about half of a stage's
+// time in a block alone on an SM.
+template <typename T, int kCoutTile>
+struct FastLoader {
+  static constexpr int kEl = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kSlots = 4;
+  int a_r[kSlots], a_c[kSlots];  // row and channel of each A slot; a_r < 0: no copy
+  int w_c[kSlots], w_n[kSlots];  // channel and column of each W slot; w_c < 0: no copy
+
+  // ccp: the padded width of a full chunk (the widest stage). A row takes
+  // ccp / kEl <= 8 copies, dealt as 2^a_sh slots; W's rows kCoutTile / kEl <= 16.
+  // Both fit kSlots slots of kFwdThreads threads.
+  __device__ __forceinline__ FastLoader(int ccp, int tid) {
+    const int per_row = ccp / kEl;
+    const int a_sh = per_row <= 1 ? 0 : 32 - __clz(per_row - 1);
+    const int w_sh = 31 - __clz(kCoutTile / kEl);
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int e = tid + i * kFwdThreads;
+      const int v = e & ((1 << a_sh) - 1);
+      a_r[i] = e < (kTileM << a_sh) && v < per_row ? e >> a_sh : -1;
+      a_c[i] = v * kEl;
+      w_c[i] = e < (ccp << w_sh) ? e >> w_sh : -1;
+      w_n[i] = (e & ((1 << w_sh) - 1)) * kEl;
+    }
+  }
+
+  __device__ __forceinline__ void load(T* stage, const int* ix, const T* f_b, const T* w, int k,
+                                       int c0, int cin, int cout, int n0) const {
+    const int cc = min(kCinChunk, cin - c0);
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int r = max(a_r[i], 0);
+      const int j = ix[r];
+      const bool live = (j >= 0) & (a_c[i] < cc);
+      const unsigned off = live ? static_cast<unsigned>(j * cin + c0 + a_c[i]) : 0u;
+      copy_async<16>(stage + r * a_stride<T>() + a_c[i], f_b + off, live, a_r[i] >= 0);
+    }
+    T* w_s = stage + kTileM * a_stride<T>();
+    const T* w_k = w + (static_cast<size_t>(k) * cin + c0) * cout + n0;
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      const int c = max(w_c[i], 0);
+      const bool live = (c < cc) & (n0 + w_n[i] < cout);
+      const unsigned off = live ? static_cast<unsigned>(c * cout + w_n[i]) : 0u;
+      copy_async<16>(w_s + c * w_stride<T, kCoutTile>() + w_n[i], w_k + off, live, w_c[i] >= 0);
+    }
+  }
+};
+
+// The general loader: one ring stage (tap k's gathered rows and its W[k] tile for
+// the channel chunk at c0) with the copy widths a_vec and w_vec (bytes) chosen once
+// per launch.
+template <typename T, int kCoutTile>
+__device__ __forceinline__ void load_stage(T* stage, const int* ix, const T* f_b, const T* w,
+                                           int k, int c0, int cin, int cout, int n0,
+                                           int a_vec, int w_vec, int tid) {
+  const int cc = min(kCinChunk, cin - c0);
+  const int ccp = (cc + chan_pad<T>() - 1) / chan_pad<T>() * chan_pad<T>();
+  switch (a_vec) {
+    case 16: load_rows<16>(stage, ix, f_b, c0, cc, ccp, cin, tid); break;
+    case 8: load_rows<8>(stage, ix, f_b, c0, cc, ccp, cin, tid); break;
+    case 4: load_rows<4>(stage, ix, f_b, c0, cc, ccp, cin, tid); break;
+    default:
+      if constexpr (!is_f32<T>()) load_rows<2>(stage, ix, f_b, c0, cc, ccp, cin, tid);
+  }
+  T* w_s = stage + kTileM * a_stride<T>();
+  const T* w_k = w + (static_cast<size_t>(k) * cin + c0) * cout + n0;
+  switch (w_vec) {
+    case 16: load_w<16, T, kCoutTile>(w_s, w_k, n0, cc, ccp, cout, tid); break;
+    case 8: load_w<8, T, kCoutTile>(w_s, w_k, n0, cc, ccp, cout, tid); break;
+    case 4: load_w<4, T, kCoutTile>(w_s, w_k, n0, cc, ccp, cout, tid); break;
+    default:
+      if constexpr (!is_f32<T>()) load_w<2, T, kCoutTile>(w_s, w_k, n0, cc, ccp, cout, tid);
+  }
+}
+
+template <typename T, int kCoutTile>
+struct GeneralLoader {
+  int a_vec, w_vec, tid;
+
+  __device__ __forceinline__ void load(T* stage, const int* ix, const T* f_b, const T* w, int k,
+                                       int c0, int cin, int cout, int n0) const {
+    load_stage<T, kCoutTile>(stage, ix, f_b, w, k, c0, cin, cout, n0, a_vec, w_vec, tid);
+  }
+};
+
+// f32 products on the CUDA cores: thread (ty, tx) owns rows ty + i * kRowThreads
+// and channels 4 tx .. 4 tx + 3 of the tile.
+template <int kCoutTile>
+struct FmaTile {
+  static constexpr int kColThreads = kCoutTile / 4;
+  static constexpr int kRowThreads = kFwdThreads / kColThreads;
+  static constexpr int kRows = kTileM / kRowThreads;
+  float part[kRows][4];
+  float acc[kRows][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = acc[i][j] = 0.f;
+  }
+
+  __device__ __forceinline__ void end_tap() {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] += part[i][j];
+        part[i][j] = 0.f;
+      }
+  }
+
+  __device__ __forceinline__ void multiply(const float* stage, int ccp, int tid) {
+    constexpr int kAStride = a_stride<float>();
+    const float* a_s = stage + (tid / kColThreads) * kAStride;
+    const float* w_s = stage + kTileM * kAStride + (tid % kColThreads) * 4;
+#pragma unroll 2
+    for (int c = 0; c < ccp; c += 4) {
+      float4 wv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wv[q] = *reinterpret_cast<const float4*>(w_s + (c + q) * kCoutTile);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(a_s + i * kRowThreads * kAStride + c);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          part[i][0] = fmaf(av[q], wv[q].x, part[i][0]);
+          part[i][1] = fmaf(av[q], wv[q].y, part[i][1]);
+          part[i][2] = fmaf(av[q], wv[q].z, part[i][2]);
+          part[i][3] = fmaf(av[q], wv[q].w, part[i][3]);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void write(float* out_b, int m0, int n0, int m_out, int cout,
+                                        int tid) const {
+    const int n = n0 + (tid % kColThreads) * 4;
+    const bool vec = (cout & 3) == 0 && (reinterpret_cast<uintptr_t>(out_b) & 15) == 0;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int m = m0 + tid / kColThreads + i * kRowThreads;
+      if (m >= m_out) continue;
+      float* o = out_b + static_cast<size_t>(m) * cout;
+      if (vec && n + 3 < cout) {
+        *reinterpret_cast<float4*>(o + n) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < cout) o[n + j] = acc[i][j];
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a (16x16, row) @ b (16x8, col), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// bf16 products on the tensor cores: warp w owns rows 16 (w % 4) .. 16 (w % 4) + 15
+// of the tile and, with more than 4 warps, one of kColGroups column groups (w / 4), as
+// kBlocks m16n8 accumulators. Lane l holds rows l / 4 and l / 4 + 8, channels
+// 2 (l % 4) and 2 (l % 4) + 1 of each.
+template <int kCoutTile>
+struct MmaTile {
+  static constexpr int kColGroups = kFwdThreads / 128;
+  static constexpr int kBlocks = kCoutTile / (8 * kColGroups);
+  float part[kBlocks][4];
+  float acc[kBlocks][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kBlocks; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = acc[i][j] = 0.f;
+  }
+
+  __device__ __forceinline__ void end_tap() {
+#pragma unroll
+    for (int i = 0; i < kBlocks; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] += part[i][j];
+        part[i][j] = 0.f;
+      }
+  }
+
+  __device__ __forceinline__ void multiply(const __nv_bfloat16* stage, int ccp, int tid) {
+    constexpr int kAStride = a_stride<__nv_bfloat16>();
+    constexpr int kWStride = w_stride<__nv_bfloat16, kCoutTile>();
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    // ldmatrix rows: A's 16 rows of this warp, two 8-channel halves; W's 16
+    // channels, one or two 8-column blocks
+    const __nv_bfloat16* a_s =
+        stage + ((warp & 3) * 16 + (lane & 15)) * kAStride + (lane >> 4) * 8;
+    const __nv_bfloat16* w_s = stage + kTileM * kAStride + (lane & 15) * kWStride +
+                               (warp >> 2) * (kBlocks * 8) + (kBlocks > 1 ? (lane >> 4) * 8 : 0);
+    for (int ks = 0; ks < ccp; ks += 16) {
+      unsigned a[4];
+      ldmatrix_x4(a, a_s + ks);
+      if constexpr (kBlocks == 1) {
+        unsigned b[2];
+        ldmatrix_x2_trans(b, w_s + ks * kWStride);
+        mma_bf16(part[0], a, b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int p = 0; p < kBlocks / 2; ++p) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, w_s + ks * kWStride + p * 16);
+          mma_bf16(part[2 * p], a, b[0], b[1]);
+          mma_bf16(part[2 * p + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void write(__nv_bfloat16* out_b, int m0, int n0, int m_out,
+                                        int cout, int tid) const {
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int row = m0 + (warp & 3) * 16 + (lane >> 2);
+    const bool pair = (cout & 1) == 0 && (reinterpret_cast<uintptr_t>(out_b) & 3) == 0;
+#pragma unroll
+    for (int i = 0; i < kBlocks; ++i) {
+      const int n = n0 + (warp >> 2) * (kBlocks * 8) + i * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = row + 8 * h;
+        if (m >= m_out || n >= cout) continue;
+        __nv_bfloat16* o = out_b + static_cast<size_t>(m) * cout + n;
+        if (pair) {
+          *reinterpret_cast<__nv_bfloat162*>(o) =
+              __floats2bfloat162_rn(acc[i][2 * h], acc[i][2 * h + 1]);
+        } else {
+          o[0] = __float2bfloat16_rn(acc[i][2 * h]);
+          if (n + 1 < cout) o[1] = __float2bfloat16_rn(acc[i][2 * h + 1]);
+        }
+      }
+    }
+  }
+};
+
+template <typename T, int kCoutTile>
+using ProductTile =
+    typename std::conditional<is_f32<T>(), FmaTile<kCoutTile>, MmaTile<kCoutTile>>::type;
+
+__device__ __forceinline__ int live_or_dead(int j, int m_in) {
+  return static_cast<unsigned>(j) < static_cast<unsigned>(m_in) ? j : -1;
+}
+
+// The ring over (live tap, channel chunk) stages, chunks inner: the loader runs
+// kStages - 1 stages ahead of the products, both walked with counters (no
+// division); the products add each tap's partial sum in tap order. Then the tile's
+// sums are written.
+template <typename T, int kCoutTile, typename Loader>
+__device__ __forceinline__ void run_ring(const Loader& loader, unsigned char* smem,
+                                         const int* idx_s, const int* taps, int n_live,
+                                         const T* f_b, const T* w, T* out_b, int m0, int n0,
+                                         int m_out, int cin, int cout, int tid) {
+  constexpr int kStage = stage_elems<T, kCoutTile>();
+  T* ring = reinterpret_cast<T*>(smem);
+  const int n_stages = n_live * ((cin + kCinChunk - 1) / kCinChunk);
+  int load_tap = 0, load_c0 = 0, load_buf = 0;
+  auto load_next = [&]() {
+    const int k = taps[load_tap];
+    loader.load(ring + load_buf * kStage, idx_s + k * kTileM, f_b, w, k, load_c0, cin, cout, n0);
+    load_c0 += kCinChunk;
+    if (load_c0 >= cin) {
+      load_c0 = 0;
+      ++load_tap;
+    }
+    load_buf = load_buf == kStages - 1 ? 0 : load_buf + 1;
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_stages) load_next();
+    cp_async_commit();
+  }
+  ProductTile<T, kCoutTile> tile;
+  tile.zero();
+  int c0 = 0, buf = 0;
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<kStages - 2>();  // stage s has landed (this thread's copies)
+    __syncthreads();               // ... everyone's, and stage s - 1 is no longer read
+    if (s + kStages - 1 < n_stages) load_next();
+    cp_async_commit();
+    const int cc = min(kCinChunk, cin - c0);
+    tile.multiply(ring + buf * kStage, (cc + chan_pad<T>() - 1) / chan_pad<T>() * chan_pad<T>(),
+                  tid);
+    c0 += kCinChunk;
+    if (c0 >= cin) {
+      c0 = 0;
+      tile.end_tap();
+    }
+    buf = buf == kStages - 1 ? 0 : buf + 1;
+  }
+  tile.write(out_b, m0, n0, m_out, cout, tid);
+}
+
+// One block per (64 output rows, tile of kCoutTile output channels, scene). Dynamic
+// shared memory: the ring (kStages stages), then the tile's indices [K][64], the
+// per-tap live flags [K], the live taps in order [K] and their count.
+template <typename T, int kCoutTile>
+__global__ void __launch_bounds__(kFwdThreads, kCoutTile == 64 ? 3 : 4)
 sparse_conv_fwd_kernel(const T* __restrict__ feats, const int* __restrict__ idx,
-                       const T* __restrict__ w, T* __restrict__ out,
-                       int m_in, int m_out, int k_taps, int cin, int cout) {
-  constexpr int kRowStep = kThreads / kCoutTile;
-  constexpr int kRowsPerThread = kTileM / kRowStep;
-  // +1 column of padding keeps the gather's row-major writes off one bank
-  __shared__ float a_s[kTileM][kCinChunk + 1];
-  __shared__ float w_s[kCinChunk][kCoutTile];
+                       const T* __restrict__ w, T* __restrict__ out, int m_in, int m_out,
+                       int k_taps, int cin, int cout, int a_vec, int w_vec, int idx_vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* idx_s = reinterpret_cast<int*>(smem + kStages * stage_elems<T, kCoutTile>() * sizeof(T));
+  int* flags = idx_s + k_taps * kTileM;
+  int* taps = flags + k_taps;
+  int* n_taps = taps + k_taps;
 
   const int b = blockIdx.z;
   const int m0 = blockIdx.x * kTileM;
   const int n0 = blockIdx.y * kCoutTile;
   const int tid = threadIdx.x;
-  const int col = tid % kCoutTile;
-  const int row0 = tid / kCoutTile;
-
-  const T* f_b = feats + static_cast<size_t>(b) * m_in * cin;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int* idx_b = idx + static_cast<size_t>(b) * k_taps * m_out;
+  T* out_b = out + static_cast<size_t>(b) * m_out * cout;
 
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) acc[r] = 0.f;
-
-  for (int k = 0; k < k_taps; ++k) {
-    const int* idx_k = idx_b + static_cast<size_t>(k) * m_out;
-    const T* w_k = w + static_cast<size_t>(k) * cin * cout;
-    float part[kRowsPerThread];
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) part[r] = 0.f;
-
-    for (int c0 = 0; c0 < cin; c0 += kCinChunk) {
-      const int cc = min(kCinChunk, cin - c0);
-      // gather: neighbouring threads read neighbouring channels of one row
-      for (int e = tid; e < kTileM * cc; e += kThreads) {
-        const int r = e / cc;
-        const int c = e - r * cc;
-        const int m = m0 + r;
-        float v = 0.f;
-        if (m < m_out) {
-          const int j = idx_k[m];
-          if (j >= 0 && j < m_in) v = to_float(f_b[static_cast<size_t>(j) * cin + c0 + c]);
-        }
-        a_s[r][c] = v;
-      }
-      for (int e = tid; e < cc * kCoutTile; e += kThreads) {
-        const int c = e / kCoutTile;
-        const int n = e - c * kCoutTile;
-        w_s[c][n] = (n0 + n < cout) ? to_float(w_k[static_cast<size_t>(c0 + c) * cout + n0 + n]) : 0.f;
-      }
-      __syncthreads();
-      for (int c = 0; c < cc; ++c) {
-        const float wv = w_s[c][col];
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r)
-          part[r] = fmaf(a_s[row0 + r * kRowStep][c], wv, part[r]);
-      }
-      __syncthreads();
+  // 1. the tile's indices, out-of-range entries as -1
+  bool any_live = false;
+  if (idx_vec && m0 + kTileM <= m_out) {
+    for (int e = tid; e < k_taps * (kTileM / 4); e += kFwdThreads) {
+      const int k = e / (kTileM / 4);
+      const int q = (e - k * (kTileM / 4)) * 4;
+      int4 v = *reinterpret_cast<const int4*>(idx_b + static_cast<size_t>(k) * m_out + m0 + q);
+      v.x = live_or_dead(v.x, m_in);
+      v.y = live_or_dead(v.y, m_in);
+      v.z = live_or_dead(v.z, m_in);
+      v.w = live_or_dead(v.w, m_in);
+      any_live |= (v.x & v.y & v.z & v.w) >= 0;  // some entry is not -1
+      *reinterpret_cast<int4*>(idx_s + k * kTileM + q) = v;
     }
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) acc[r] += part[r];
+  } else {
+    for (int e = tid; e < k_taps * kTileM; e += kFwdThreads) {
+      const int k = e / kTileM;
+      const int m = m0 + e - k * kTileM;
+      const int j =
+          m < m_out ? live_or_dead(idx_b[static_cast<size_t>(k) * m_out + m], m_in) : -1;
+      idx_s[e] = j;
+      any_live |= j >= 0;
+    }
   }
+  if (!__syncthreads_or(any_live)) {  // a dead tile: zeros, no gather, no product
+    for (int e = tid; e < kTileM * kCoutTile; e += kFwdThreads) {
+      const int m = m0 + e / kCoutTile;
+      const int n = n0 + e % kCoutTile;
+      if (m < m_out && n < cout) store(out_b + static_cast<size_t>(m) * cout + n, 0.f);
+    }
+    return;
+  }
+  // 2. a vote per tap, then the live taps in order
+  for (int k = warp; k < k_taps; k += kFwdThreads / 32) {
+    const bool any = __any_sync(0xffffffffu, idx_s[k * kTileM + lane] >= 0 ||
+                                                 idx_s[k * kTileM + lane + 32] >= 0);
+    if (lane == 0) flags[k] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int k0 = 0; k0 < k_taps; k0 += 32) {
+      const int k = k0 + lane;
+      const bool live = k < k_taps && flags[k];
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) taps[n + __popc(mask & ((1u << lane) - 1u))] = k;
+      n += __popc(mask);
+    }
+    if (lane == 0) *n_taps = n;
+  }
+  __syncthreads();
+  const int n_live = *n_taps;
 
-  const int n = n0 + col;
-  if (n >= cout) return;
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    const int m = m0 + row0 + r * kRowStep;
-    if (m < m_out) store(out + (static_cast<size_t>(b) * m_out + m) * cout + n, acc[r]);
-  }
+  // 3. the ring over the live taps
+  const T* f_b = feats + static_cast<size_t>(b) * m_in * cin;
+  const int ccp = (min(kCinChunk, cin) + chan_pad<T>() - 1) / chan_pad<T>() * chan_pad<T>();
+  if (a_vec == 16 && w_vec == 16)
+    run_ring<T, kCoutTile>(FastLoader<T, kCoutTile>(ccp, tid), smem, idx_s, taps, n_live, f_b, w,
+                           out_b, m0, n0, m_out, cin, cout, tid);
+  else
+    run_ring<T, kCoutTile>(GeneralLoader<T, kCoutTile>{a_vec, w_vec, tid}, smem, idx_s, taps,
+                           n_live, f_b, w, out_b, m0, n0, m_out, cin, cout, tid);
+}
+
+// The widest copy (16, 8 or 4 bytes; 2 for bf16 rows of odd width) that divides a
+// row of `row_elems` elements and the alignment of `p`.
+template <typename T>
+int copy_bytes(const void* p, long long row_elems) {
+  const long long row = row_elems * static_cast<long long>(sizeof(T));
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
+  for (int v = 16; v > static_cast<int>(sizeof(T)); v /= 2)
+    if (row % v == 0 && addr % v == 0) return v;
+  return static_cast<int>(sizeof(T));
 }
 
 template <typename T, int kCoutTile>
-void launch(const void* feats, const void* idx, const void* w, void* out, int batch,
-            int m_in, int m_out, int k_taps, int cin, int cout, cudaStream_t stream) {
+int launch(const void* feats, const void* idx, const void* w, void* out, int batch, int m_in,
+           int m_out, int k_taps, int cin, int cout, cudaStream_t stream) {
+  const size_t smem = kStages * stage_elems<T, kCoutTile>() * sizeof(T) +
+                      (static_cast<size_t>(k_taps) * (kTileM + 2) + 1) * sizeof(int);
+  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  // above 48 KB dynamic shared memory needs this once per kernel instance and device
+  static bool granted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || !granted[dev]) {
+    err = cudaFuncSetAttribute(sparse_conv_fwd_kernel<T, kCoutTile>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) granted[dev] = true;
+  }
+  const int idx_vec = m_out % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
   const dim3 grid((m_out + kTileM - 1) / kTileM, (cout + kCoutTile - 1) / kCoutTile, batch);
-  sparse_conv_fwd_kernel<T, kCoutTile><<<grid, kThreads, 0, stream>>>(
+  sparse_conv_fwd_kernel<T, kCoutTile><<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const T*>(feats), static_cast<const int*>(idx), static_cast<const T*>(w),
-      static_cast<T*>(out), m_in, m_out, k_taps, cin, cout);
+      static_cast<T*>(out), m_in, m_out, k_taps, cin, cout, copy_bytes<T>(feats, cin),
+      copy_bytes<T>(w, cout), idx_vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-void dispatch(const void* feats, const void* idx, const void* w, void* out, int batch,
-              int m_in, int m_out, int k_taps, int cin, int cout, cudaStream_t stream) {
+int dispatch(const void* feats, const void* idx, const void* w, void* out, int batch, int m_in,
+             int m_out, int k_taps, int cin, int cout, cudaStream_t stream) {
   if (cout <= 16)
-    launch<T, 16>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, stream);
-  else if (cout <= 32)
-    launch<T, 32>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, stream);
-  else
-    launch<T, 64>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, stream);
+    return launch<T, 16>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, stream);
+  if (cout <= 32)
+    return launch<T, 32>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, stream);
+  return launch<T, 64>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -296,19 +828,20 @@ void dispatch_wgrad(const void* feats, const void* t_idx, const void* g, float* 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch (or
+// the error of setting the kernel's shared-memory limit, or cudaErrorInvalidValue).
 extern "C" int sparse_conv_forward(const void* feats, const void* idx, const void* w,
                                    void* out, int batch, int m_in, int m_out, int k_taps,
                                    int cin, int cout, int dtype, void* stream) {
   if (batch < 1 || batch > 65535 || m_out < 1 || k_taps < 1 || cin < 1 || cout < 1 ||
-      m_in < 0 || (dtype != 0 && dtype != 1))
+      m_in < 0 || (dtype != 0 && dtype != 1) ||
+      static_cast<long long>(m_in) * cin >= (1LL << 31) ||
+      static_cast<long long>(cin) * cout >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    dispatch<float>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, s);
-  else
-    dispatch<__nv_bfloat16>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, s);
-  return static_cast<int>(cudaGetLastError());
+    return dispatch<float>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, s);
+  return dispatch<__nv_bfloat16>(feats, idx, w, out, batch, m_in, m_out, k_taps, cin, cout, s);
 }
 
 // Weight gradient: pass 1 into partials f32 [K, batch * n_chunks, Cin, Cout], pass 2

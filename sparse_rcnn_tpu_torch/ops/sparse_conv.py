@@ -91,10 +91,11 @@ def sparse_conv_wgrad_reference(feats: torch.Tensor, t_idx: torch.Tensor,
     return out
 
 
-def build_kernel() -> tuple:
-    """Compile ``csrc/sparse_conv.cu`` for sm_90a unless a library built from
-    the same source exists. Returns (path of the .so, nvcc's messages)."""
-    src = _SRC.read_bytes()
+def build_kernel(source: Path = _SRC) -> tuple:
+    """Compile ``source`` (by default ``csrc/sparse_conv.cu``) for sm_90a
+    unless a library built from the same text exists. Returns (path of the
+    .so, nvcc's messages)."""
+    src = Path(source).read_bytes()
     so = _BUILD_DIR / f"libsparse_conv_{hashlib.sha1(src).hexdigest()[:12]}.so"
     if so.exists():
         return so, ""
@@ -104,7 +105,7 @@ def build_kernel() -> tuple:
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
+           "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")

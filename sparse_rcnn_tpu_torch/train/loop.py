@@ -18,6 +18,7 @@ same :class:`TrainState`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional
@@ -325,9 +326,35 @@ def init_state(cfg: Config, device="cuda",
                       ema_params=ema)
 
 
+@contextlib.contextmanager
+def deterministic_on_cpu(device):
+    """Run the block under ``torch.use_deterministic_algorithms(True)`` when
+    ``device`` is the CPU, and restore the previous setting after it.
+
+    On the CPU, the backward of an advanced-indexing read (``feats[idx]`` in
+    ``ops/roi.py::sample_trilinear``) is an ``index_put_`` accumulate that
+    adds repeated rows with parallel atomics, so a gradient changes in its
+    last bits from run to run; the deterministic mode sorts the indices
+    first. On the card nothing is switched: CUDA's ``index_put_`` already
+    sorts, and the mode would make cuBLAS refuse to run without a workspace
+    setting the caller did not ask for.
+    """
+    if torch.device(device).type != "cpu":
+        yield
+        return
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
 def loss_and_grads(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor]):
     """Forward in training mode (BN batch statistics, GT injection), losses
-    and the gradients of every parameter (zeros where none flows).
+    and the gradients of every parameter (zeros where none flows), bit-stable
+    from run to run on the card and on the CPU (:func:`deterministic_on_cpu`).
     Returns (total, parts, grads, aux); the BN running statistics move."""
     cfg = train_cfg(cfg)
     st, _, scales, gt, aux = prepare_inputs(cfg, batch)
@@ -335,7 +362,8 @@ def loss_and_grads(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor
     out = model(st.feats, scales, gt_boxes=gt.boxes, gt_boxes_valid=gt.valid)
     total, parts = compute_losses(cfg, out, scales, gt, st.row_mask)
     params = list(model.parameters())
-    grads = torch.autograd.grad(total, params, allow_unused=True)
+    with deterministic_on_cpu(total.device):
+        grads = torch.autograd.grad(total, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     return total.detach(), {k: v.detach() for k, v in parts.items()}, grads, aux
 

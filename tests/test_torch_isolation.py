@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``sparse_rcnn_tpu_torch``,
-``chip_smoke.py``, the on-card test file and the port's profiler loads neither jax nor anything
-of ``sparse_rcnn_tpu`` (checked in a fresh interpreter), and ``chip_smoke.py`` refuses to run
-without a CUDA card or without the rest of the repo, printing no result."""
+``chip_smoke.py``, the on-card test file and the port's benchmark scripts loads
+neither jax nor anything of ``sparse_rcnn_tpu`` (checked in a fresh interpreter),
+and ``chip_smoke.py`` refuses to run without a CUDA card or without the rest of
+the repo, printing no result."""
 
 import os
 import shutil
@@ -25,6 +26,8 @@ assert need <= set(names), sorted(need - set(names))
 import chip_smoke
 import tests.test_torch_kernel_cuda
 import benchmarks.profile_torch_slice
+import benchmarks.compare_gather_gemm
+import benchmarks.probe_gather_gemm_stages
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sparse_rcnn_tpu"))
 print(len(names), "modules")

@@ -21,8 +21,13 @@ from sparse_rcnn_tpu_torch.ops import sparse_conv as SC
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# (K, Cin, Cout, M_in, M_out, dtype): the tap counts of the UNet, the
-# stem's Cin=3, a decoder concat width, ragged M (not a multiple of 8)
+# (K, Cin, Cout, M_in, M_out, dtype[, liveness]): the tap counts of the UNet,
+# the stem's Cin=3, a decoder concat width, ragged M (not a multiple of 8);
+# then the paths of the kernel's dead-tile skip and its copy widths: live
+# rows ending at 60 % of M (dead tail tiles), every entry -1, the second
+# scene live only to 30 % of M, Cin 3 in bf16 (6-byte rows, plain loads),
+# Cin 24, Cout 24 and 64, M below one 64-row tile, and Cin 40 / Cout 80
+# (two channel chunks, two output-channel tiles)
 CASES = [
     (27, 3, 16, 200, 200, "float32"),
     (27, 16, 24, 203, 203, "float32"),
@@ -32,11 +37,39 @@ CASES = [
     (27, 16, 16, 200, 200, "bfloat16"),
     (8, 16, 32, 200, 131, "bfloat16"),
     (1, 32, 16, 77, 77, "bfloat16"),
+    (27, 16, 16, 300, 300, "float32", "tail60"),
+    (27, 16, 16, 300, 300, "bfloat16", "tail60"),
+    (27, 16, 16, 300, 300, "float32", "dead"),
+    (27, 16, 16, 300, 300, "bfloat16", "dead"),
+    (27, 16, 16, 300, 300, "float32", "mixed"),
+    (27, 16, 16, 300, 300, "bfloat16", "mixed"),
+    (27, 3, 16, 200, 200, "bfloat16"),
+    (27, 24, 24, 150, 150, "bfloat16"),
+    (27, 16, 64, 200, 200, "float32"),
+    (27, 16, 64, 200, 200, "bfloat16"),
+    (27, 16, 16, 40, 37, "float32"),
+    (27, 16, 16, 40, 37, "bfloat16"),
+    (8, 40, 80, 100, 100, "float32"),
+    (8, 40, 80, 100, 100, "bfloat16"),
 ]
 
 
 def case_id(c):
-    return "K{}_{}x{}_M{}to{}_{}".format(*c)
+    return "K{}_{}x{}_M{}to{}_{}".format(*c) + "".join(f"_{x}" for x in c[6:])
+
+
+def apply_liveness(ix, live):
+    """Kill rows of a gather index [B, K, M] in place: ``tail60`` every
+    entry of rows from 60 % of M on, ``dead`` every entry, ``mixed`` the
+    second scene's rows from 30 % of M on."""
+    m = ix.shape[-1]
+    if live == "tail60":
+        ix[:, :, int(0.6 * m):] = -1
+    elif live == "dead":
+        ix[:] = -1
+    elif live == "mixed":
+        ix[1, :, int(0.3 * m):] = -1
+    return ix
 
 
 def make_inputs(seed, k, cin, cout, m_in, m_out, batch=2):
@@ -79,8 +112,9 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_cuda_kernel_matches_reference(cuda_device, case):
-    k, cin, cout, m_in, m_out, dt = case
+    k, cin, cout, m_in, m_out, dt, *live = case
     feats, idx, w = make_inputs(sum(case[:5]), k, cin, cout, m_in, m_out)
+    apply_liveness(idx, live[0] if live else None)
     f = torch.from_numpy(feats).to(cuda_device, TORCH_DT[dt])
     ix = torch.from_numpy(idx).to(cuda_device)
     tw = torch.from_numpy(w).to(cuda_device, TORCH_DT[dt])
@@ -117,8 +151,9 @@ def _wgrad_close(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_cuda_backward_kernels_match_reference(cuda_device, case):
-    k, cin, cout, m_in, m_out, dt = case
+    k, cin, cout, m_in, m_out, dt, *live = case
     feats, idx, t_idx, w = make_rulebook_inputs(sum(case[:5]), k, cin, cout, m_in, m_out)
+    apply_liveness(t_idx, live[0] if live else None)      # the dgrad's gather index
     rng = np.random.default_rng(1)
     g = torch.from_numpy(rng.normal(size=(2, m_out, cout)).astype(np.float32))
     f = torch.from_numpy(feats).to(cuda_device, TORCH_DT[dt])

@@ -22,7 +22,8 @@ import torch
 from sparse_rcnn_tpu.ops import pallas_conv as JPC
 from sparse_rcnn_tpu.ops import sparse_conv as JSC
 from sparse_rcnn_tpu_torch.ops import sparse_conv as SC
-from tests.test_torch_kernel_cuda import CASES, TOL, TORCH_DT, case_id, make_inputs
+from tests.test_torch_kernel_cuda import (CASES, TOL, TORCH_DT, apply_liveness, case_id,
+                                          make_inputs)
 
 
 _gather_matmul_conv = jax.jit(JSC.gather_matmul_conv)
@@ -35,8 +36,9 @@ def as_f32(x):
 
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_reference_matches_jax_executors(case):
-    k, cin, cout, m_in, m_out, dt = case
+    k, cin, cout, m_in, m_out, dt, *live = case
     feats, idx, w = make_inputs(sum(case[:5]), k, cin, cout, m_in, m_out)
+    apply_liveness(idx, live[0] if live else None)
     jf, jw = jnp.asarray(feats).astype(dt), jnp.asarray(w).astype(dt)
     tf, tw = torch.from_numpy(feats).to(TORCH_DT[dt]), torch.from_numpy(w).to(TORCH_DT[dt])
     got = SC.sparse_conv(tf, torch.from_numpy(idx), tw)
