@@ -13,8 +13,9 @@ nonzero:
    config-2-sized shape and the edge cases of its dead-tile skip and copy
    widths (``EDGE_CONVS``), with kernel, plain, library and bound times and
    the share of (64-row tile, tap) pairs with no live entry; then the
-   backward kernels (dgrad and wgrad) the same way, the wgrad checked
-   bit-identical across two launches;
+   backward kernels (dgrad and wgrad) the same way, the edge cases for
+   both, the wgrad checked bit-identical across two launches and with its
+   share of (32-row stage, tap) pairs with no live entry;
 4. the config-1 inference slice on the card: ``infer.main`` on 3 val scenes
    (the forward count must rise by 10 per forward); tie-breaking of sort
    and argmax on the card; then the same weights and scenes on the CPU,
@@ -113,6 +114,7 @@ EDGE_CONVS = [
     ("b2_mixed", 27, 16, 16, 16384, 16384, (1.0, 0.3)),
 ]
 TILE_M = 64                     # output rows per block of the gather-GEMM
+WGRAD_STAGE = 32                # rows per stage of the wgrad kernel's first pass
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 # wgrad against its plain version: up to B*M products per entry summed in
@@ -232,12 +234,13 @@ def conv_inputs(k, cin, cout, m_in, m_out, dtype, seed, live_rows=(1.0,)):
     return feats, idx, w
 
 
-def dead_pair_share(idx, m_in) -> float:
-    """Share of the (64-row tile, tap) pairs of idx [B, K, M] with no entry
-    in [0, M_in): the pairs the gather-GEMM skips."""
+def dead_pair_share(idx, m_in, tile=TILE_M) -> float:
+    """Share of the (``tile``-row tile, tap) pairs of idx [B, K, M] with no
+    entry in [0, M_in): the pairs the gather-GEMM (64-row tiles) and the
+    wgrad (32-row stages of t_idx; its row chunks are 32-row aligned) skip."""
     b, k, m = idx.shape
     live = ((idx >= 0) & (idx < m_in)).to(torch.uint8)
-    live = torch.nn.functional.pad(live, (0, -m % TILE_M)).reshape(b, k, -1, TILE_M)
+    live = torch.nn.functional.pad(live, (0, -m % tile)).reshape(b, k, -1, tile)
     return 1.0 - live.amax(-1).float().mean().item()
 
 
@@ -327,15 +330,17 @@ def phase_kernel() -> list:
     return recs
 
 
-def dead_tile_cost(recs, role) -> None:
+def dead_tile_cost(recs, role, unit="64-row tile") -> None:
     """Log the all-dead K27 16->16 case's time beside the same shape with
-    live rows ending at 60 % of M (``EDGE_CONVS``)."""
+    live rows ending at 60 % of M (``EDGE_CONVS``), and the share of dead
+    (``unit``, tap) pairs of each."""
     by = {(r["conv"], r["dtype"]): r for r in recs}
     for dt in ("float32", "bfloat16"):
         dead, tail = by[("all_dead", dt)], by[("dead_tail_60", dt)]
         log(f"  {role} {dt}: all -1 idx {dead['kernel_ms']:.4f} ms vs live rows to 60 % "
             f"of M {tail['kernel_ms']:.4f} ms (ratio {dead['kernel_ms'] / tail['kernel_ms']:.3f}), "
-            f"K{dead['K']} {dead['Cin']}->{dead['Cout']}, M {dead['M_out']}")
+            f"K{dead['K']} {dead['Cin']}->{dead['Cout']}, M {dead['M_out']}; dead ({unit}, tap) "
+            f"pairs {dead['dead_pair_share']:.3f} and {tail['dead_pair_share']:.3f}")
 
 
 # --------------------------------------------------------------------------
@@ -606,7 +611,8 @@ def wgrad_library_fn(feats, t_idx, g):
 def measure_wgrad(name, feats, t_idx, g) -> dict:
     """The wgrad kernel against its plain version on these inputs, checked
     bit-identical across two launches, with kernel, plain, library and
-    bound times. The bound counts the bytes of t_idx, feats, g and the f32
+    bound times and the share of (32-row stage, tap) pairs of t_idx with no
+    live entry. The bound counts the bytes of t_idx, feats, g and the f32
     out, each once, and the products of t_idx's live entries."""
     dtype = feats.dtype
     b, m_in, cin = feats.shape
@@ -629,8 +635,9 @@ def measure_wgrad(name, feats, t_idx, g) -> dict:
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     rec = {
         "conv": name, "role": "wgrad", "dtype": str(dtype).replace("torch.", ""), "K": k,
-        "Cin": cin, "Cout": cout, "M_in": m_in, "M_out": g.shape[1], "live_taps": nnz,
-        "max_abs_err": err, "tol": {"rtol": WGRAD_RTOL, "atol": WGRAD_RTOL * scale},
+        "Cin": cin, "Cout": cout, "M_in": m_in, "M_out": g.shape[1], "B": b, "live_taps": nnz,
+        "dead_pair_share": dead_pair_share(t_idx, g.shape[1], WGRAD_STAGE), "max_abs_err": err,
+        "tol": {"rtol": WGRAD_RTOL, "atol": WGRAD_RTOL * scale},
         "bit_identical": same, "ok": bool(ok),
         "kernel_ms": time_ms(lambda: sc.WGRAD(feats, t_idx, g)),
         "plain_ms": time_ms(lambda: sc.sparse_conv_wgrad_reference(feats, t_idx, g), reps=20,
@@ -641,7 +648,8 @@ def measure_wgrad(name, feats, t_idx, g) -> dict:
         "bytes": nbytes, "flops": flops,
     }
     log(f"  {name:18s} {rec['dtype']:8s} K{k:<2d} {cin:>2d}->{cout:<2d} "
-        f"M {m_in}<-{g.shape[1]} live {nnz / t_idx.numel():.3f}: "
+        f"M {m_in}<-{g.shape[1]} B{b} live {nnz / t_idx.numel():.3f} "
+        f"dead (stage, tap) {rec['dead_pair_share']:.3f}: "
         f"kernel_ms={rec['kernel_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
         f"library_ms(2 calls)={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
         f"({rec['bound_by']}) max_abs_err={err:.3e} bit_identical={same} "
@@ -660,15 +668,21 @@ def phase_backward_kernels() -> list:
         feats, t_idx, g, w = bwd_inputs(k, cin, cout, m_in, m_out, dtype, seed=200 + i)
         recs.append(measure_dgrad(name, g, t_idx, w))
         recs.append(measure_wgrad(name, feats, t_idx, g))
-    # the dgrad on the edge cases, launched at their shapes: its gather reads
-    # g (the conv's Cout wide) through t_idx into the conv's M_in rows
+    # the edge cases, launched at their shapes. The dgrad's gather reads g
+    # (the conv's Cout wide) through t_idx into the conv's M_in rows; the
+    # wgrad's reads g through t_idx [B, K, M_in] of the conv's own shape,
+    # its dead rows the rows of feats that its stages walk
     for dtype in (torch.float32, torch.bfloat16):
         for i, (name, k, cin_l, cout_l, m_in_l, m_out_l, live_rows) in enumerate(EDGE_CONVS):
             _, t_idx, g, w = bwd_inputs(k, cout_l, cin_l, m_out_l, m_in_l, dtype,
                                         seed=400 + i, live_rows=live_rows)
             recs.append(measure_dgrad(name, g, t_idx, w))
+            feats, t_idx, g, _ = bwd_inputs(k, cin_l, cout_l, m_in_l, m_out_l, dtype,
+                                            seed=500 + i, live_rows=live_rows)
+            recs.append(measure_wgrad(name, feats, t_idx, g))
     require_ok(recs, "backward kernels, random inputs")
     dead_tile_cost([r for r in recs if r["role"] == "dgrad"], "dgrad")
+    dead_tile_cost([r for r in recs if r["role"] == "wgrad"], "wgrad", "32-row stage")
     return recs
 
 
@@ -730,6 +744,10 @@ def main_path_backward(cfg, model, batch) -> tuple:
     w_ = [measure_wgrad(f"K{t.shape[1]} {f.shape[2]}->{g.shape[2]}", f, t, g)
           for f, t, g in wg]
     require_ok(d + w_, "backward kernels, main-path inputs")
+    log("  dead pairs on the main path, dgrad (64-row tile, tap): "
+        + ", ".join(f"{r['dead_pair_share']:.3f}" for r in d)
+        + "; wgrad (32-row stage, tap): "
+        + ", ".join(f"{r['dead_pair_share']:.3f}" for r in w_))
     return d, w_
 
 

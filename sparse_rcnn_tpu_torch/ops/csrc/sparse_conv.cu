@@ -79,10 +79,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;     // wgrad block size
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
@@ -643,23 +639,30 @@ int copy_bytes(const void* p, long long row_elems) {
   return static_cast<int>(sizeof(T));
 }
 
+// Above 48 KB, dynamic shared memory needs this once per kernel instance and device;
+// `granted` is the instance's own record of the devices done.
+inline cudaError_t allow_max_smem(const void* kernel, bool (&granted)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !granted[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) granted[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int kCoutTile>
 int launch(const void* feats, const void* idx, const void* w, void* out, int batch, int m_in,
            int m_out, int k_taps, int cin, int cout, cudaStream_t stream) {
   const size_t smem = kStages * stage_elems<T, kCoutTile>() * sizeof(T) +
                       (static_cast<size_t>(k_taps) * (kTileM + 2) + 1) * sizeof(int);
   if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  // above 48 KB dynamic shared memory needs this once per kernel instance and device
   static bool granted[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_max_smem(
+      reinterpret_cast<const void*>(sparse_conv_fwd_kernel<T, kCoutTile>), granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || !granted[dev]) {
-    err = cudaFuncSetAttribute(sparse_conv_fwd_kernel<T, kCoutTile>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) granted[dev] = true;
-  }
   const int idx_vec = m_out % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
   const dim3 grid((m_out + kTileM - 1) / kTileM, (cout + kCoutTile - 1) / kCoutTile, batch);
   sparse_conv_fwd_kernel<T, kCoutTile><<<grid, kFwdThreads, smem, stream>>>(
@@ -690,17 +693,37 @@ int dispatch(const void* feats, const void* idx, const void* w, void* out, int b
 // XLA computes beside the Pallas dgrad on the same gathered cotangent, summed over
 // row tiles in scan order and then over scenes.
 //
-// What bounds it on the card: bytes. Each (tap, row) pair costs Cin*Cout FMAs against
-// one gathered g row and one feats row (Cin + Cout values): at config 1's widths
-// (<= 32) that is below the f32 ridge of the CUDA cores once each input is counted
-// once, and far below the bf16 tensor-core ridge. So the design reads each input row
-// once per tap from L2 into shared memory, keeps the [Cin, Cout] sum of its rows in
-// registers, and writes one partial tile per block.
+// What bounds it on the card: bytes. Each live (tap, row) pair costs Cin*Cout FMAs
+// against one gathered g row and one feats row (Cin + Cout values): at config 1's
+// widths (<= 32) that is below the f32 ridge of the CUDA cores once each input is
+// counted once, and far below the bf16 tensor-core ridge. So the design reads each
+// feats row once per group of taps and each g row only where its pair is live, keeps
+// the [Cin, Cout] sums in registers, and writes one partial tile per block and tap.
 //
-// Pass 1: one block per (chunk of rows of one scene, tap k, tile of 32 input channels
-// x 16 or 32 output channels). It stages 32 rows at a time: feats[j] and the gathered
-// g[t_idx[k, j]] (-1 -> 0) into shared memory, then each thread adds the products
-// of its (c, n) entries in row order. The tile goes to partials[k, chunk, Cin, Cout].
+// Pass 1: one block per (chunk of rows of one scene, group of up to 8 taps, tile of
+// the Cin x Cout entries: all of them up to 32 x 32, which is all of config 1), one
+// warp per tap; K is split into equal groups, so K27 runs 4 blocks of 7 warps and K8
+// and K1 one block of 8 and of 1. The block walks its chunk in stages of 32 rows
+// through a ring of 2 buffers filled by cp.async while the previous stage is
+// multiplied:
+//  - the stage's feats rows go into shared memory once for all the group's taps
+//    (16-byte copies where rows allow), unless no tap of the group has a live row
+//    there: the ring's one barrier a stage (__syncthreads_or) is also that vote;
+//  - each warp reads its tap's 32 t_idx entries of a stage, one a lane and one stage
+//    ahead, and takes a __ballot_sync of the live ones; lane r copies g[t_idx[r]]
+//    into the warp's own buffer if row r is live, so only live rows are gathered;
+//  - a warp with no live row in a stage skips its products; otherwise it walks the
+//    live rows in ascending order (__ffs over the ballot), and each lane adds the
+//    products of its register tile of (c, n) entries: 4 x 8 at 32 x 32, 2 x 4 at
+//    16 x 16, 1 x 2 at Cin <= 4 (the stem's Cin 3) and Cout 16. bf16 is copied raw
+//    and converted to f32 when read from shared memory.
+// No two threads own an entry, so each entry of a tile is one fmaf chain over its
+// chunk's live rows in ascending row order. Bit for bit, that is the sum of a walk
+// over every row of the chunk that adds fmaf(f, +0, acc) for a dead row: for finite
+// feats that term is an exact zero (a partial may stay -0 where the walk makes it
+// +0, and pass 2's sum, which starts at +0, absorbs that). Non-finite feats at a
+// dead row (inf * 0 = NaN) are where the two part; the model gives none. The tile
+// goes to partials[k, chunk, Cin, Cout].
 // Pass 2: one thread per (k, c, n) adds the partials of all chunks in chunk order
 // (scene 0 first) into out[k, c, n], f32.
 //
@@ -712,77 +735,223 @@ int dispatch(const void* feats, const void* idx, const void* w, void* out, int b
 // [c * rows_per_chunk, min(M_in, (c + 1) * rows_per_chunk)). Any M, Cin >= 1, Cout >= 1.
 // An index outside [0, M_out) counts as no neighbour.
 
-constexpr int kWTileC = 32;  // input channels per block
-constexpr int kWStage = 32;  // rows staged in shared memory per step
+constexpr int kThreads = 256;   // reduce block size
+constexpr int kWStage = 32;     // rows a stage: one a lane
+constexpr int kWMaxWarps = 8;   // taps a block
 
-template <typename T, int kTileN>
-__global__ void __launch_bounds__(kThreads)
+// A warp's register tiling of a kTC x kTN tile of entries: lane l owns the kRC input
+// channels from (l / kLanesN) * kRC and the kRN output channels from (l % kLanesN) * kRN.
+template <int kTC, int kTN>
+struct WgradTile {
+  static constexpr int kLanesC = kTC < 8 ? kTC : 8;
+  static constexpr int kLanesN = 32 / kLanesC;
+  static constexpr int kRC = kTC / kLanesC;
+  static constexpr int kRN = kTN / kLanesN;
+};
+
+// kN values of type T from shared memory at p (aligned to kN * sizeof(T)) as f32, in
+// the widest loads that fit. bf16 to f32 is exact: the 16 bits moved up, as
+// __bfloat162float does.
+template <int kN, typename T>
+__device__ __forceinline__ void load_f32(float (&v)[kN], const T* p) {
+  if constexpr (is_f32<T>()) {
+    if constexpr (kN % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < kN / 4; ++q) {
+        const float4 x = reinterpret_cast<const float4*>(p)[q];
+        v[4 * q] = x.x;
+        v[4 * q + 1] = x.y;
+        v[4 * q + 2] = x.z;
+        v[4 * q + 3] = x.w;
+      }
+    } else if constexpr (kN == 2) {
+      const float2 x = *reinterpret_cast<const float2*>(p);
+      v[0] = x.x;
+      v[1] = x.y;
+    } else {
+      v[0] = *p;
+    }
+  } else if constexpr (kN == 1) {
+    v[0] = __uint_as_float(static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
+                           << 16);
+  } else {
+    unsigned w[kN / 2];
+    if constexpr (kN % 8 == 0) {
+#pragma unroll
+      for (int q = 0; q < kN / 8; ++q) {
+        const uint4 x = reinterpret_cast<const uint4*>(p)[q];
+        w[4 * q] = x.x;
+        w[4 * q + 1] = x.y;
+        w[4 * q + 2] = x.z;
+        w[4 * q + 3] = x.w;
+      }
+    } else if constexpr (kN == 4) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[0] = x.x;
+      w[1] = x.y;
+    } else {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    }
+#pragma unroll
+    for (int q = 0; q < kN / 2; ++q) {
+      v[2 * q] = __uint_as_float(w[q] << 16);
+      v[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+    }
+  }
+}
+
+// rows x row_elems elements from src (rows src_stride apart) to dst (dst_stride
+// apart) in kBytes copies, dealt to n_threads threads with shifts, not division
+template <int kBytes, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int dst_stride, const T* src, int src_stride,
+                                          int rows, int row_elems, int tid, int n_threads) {
+  constexpr int kEl = kBytes / static_cast<int>(sizeof(T));
+  const int per_row = row_elems / kEl;
+  const int sh = per_row <= 1 ? 0 : 32 - __clz(per_row - 1);
+  const int mask = (1 << sh) - 1;
+  for (int e = tid; e < (rows << sh); e += n_threads) {
+    const int r = e >> sh;
+    const int v = (e & mask) * kEl;
+    copy_async<kBytes>(dst + r * dst_stride + v, src + static_cast<size_t>(r) * src_stride + v,
+                       true, v < row_elems);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_rows(int bytes, T* dst, int dst_stride, const T* src,
+                                          int src_stride, int rows, int row_elems, int tid,
+                                          int n_threads) {
+  switch (bytes) {
+    case 16:
+      copy_rows<16>(dst, dst_stride, src, src_stride, rows, row_elems, tid, n_threads);
+      break;
+    case 8:
+      copy_rows<8>(dst, dst_stride, src, src_stride, rows, row_elems, tid, n_threads);
+      break;
+    case 4:
+      copy_rows<4>(dst, dst_stride, src, src_stride, rows, row_elems, tid, n_threads);
+      break;
+    default:
+      if constexpr (!is_f32<T>())
+        copy_rows<2>(dst, dst_stride, src, src_stride, rows, row_elems, tid, n_threads);
+  }
+}
+
+// one row of row_elems elements, by one thread
+template <int kBytes, typename T>
+__device__ __forceinline__ void copy_row(T* dst, const T* src, int row_elems) {
+  constexpr int kEl = kBytes / static_cast<int>(sizeof(T));
+  for (int v = 0; v < row_elems; v += kEl) copy_async<kBytes>(dst + v, src + v, true, true);
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_row(int bytes, T* dst, const T* src, int row_elems) {
+  switch (bytes) {
+    case 16: copy_row<16>(dst, src, row_elems); break;
+    case 8: copy_row<8>(dst, src, row_elems); break;
+    case 4: copy_row<4>(dst, src, row_elems); break;
+    default:
+      if constexpr (!is_f32<T>()) copy_row<2>(dst, src, row_elems);
+  }
+}
+
+// Dynamic shared memory: feats [2][kWStage][kTC], then each warp's g [2][kWStage][kTN].
+// f_vec and g_vec are the copy widths (bytes) of feats and g rows.
+template <typename T, int kTC, int kTN>
+__global__ void __launch_bounds__(kWMaxWarps * 32)
 sparse_conv_wgrad_partial_kernel(const T* __restrict__ feats, const int* __restrict__ t_idx,
                                  const T* __restrict__ g, float* __restrict__ partials,
                                  int m_in, int m_out, int k_taps, int cin, int cout,
-                                 int rows_per_chunk, int n_chunks) {
-  constexpr int kRowStep = kThreads / kTileN;        // 16 or 8 channel rows
-  constexpr int kCPerThread = kWTileC / kRowStep;    // 2 or 4 entries per thread
-  // +1 column of padding keeps the staging writes off one bank
-  __shared__ float f_s[kWStage][kWTileC + 1];
-  __shared__ float g_s[kWStage][kTileN];
+                                 int rows_per_chunk, int n_chunks, int f_vec, int g_vec) {
+  using Tile = WgradTile<kTC, kTN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  T* f_s = reinterpret_cast<T*>(smem);
+  T* g_s = f_s + 2 * kWStage * kTC + warp * 2 * kWStage * kTN;
 
   const int chunk = blockIdx.x;                       // b * n_chunks + chunk of scene b
   const int b = chunk / n_chunks;
   const int j_begin = (chunk - b * n_chunks) * rows_per_chunk;
   const int j_end = min(m_in, j_begin + rows_per_chunk);
-  const int k = blockIdx.y;
-  const int n_ctiles = (cin + kWTileC - 1) / kWTileC;
-  const int c0 = (blockIdx.z % n_ctiles) * kWTileC;
-  const int n0 = (blockIdx.z / n_ctiles) * kTileN;
-  const int tid = threadIdx.x;
-  const int col = tid % kTileN;
-  const int crow = tid / kTileN;
+  const int k = blockIdx.y * (blockDim.x >> 5) + warp;
+  const bool tap = k < k_taps;                        // the last group may be short
+  const int n_ctiles = (cin + kTC - 1) / kTC;
+  const int c0 = (blockIdx.z % n_ctiles) * kTC;
+  const int n0 = (blockIdx.z / n_ctiles) * kTN;
+  const int cc = min(kTC, cin - c0);
+  const int nc = min(kTN, cout - n0);
 
-  const T* f_b = feats + static_cast<size_t>(b) * m_in * cin;
-  const T* g_b = g + static_cast<size_t>(b) * m_out * cout;
-  const int* ti = t_idx + (static_cast<size_t>(b) * k_taps + k) * m_in;
+  const T* f_b = feats + static_cast<size_t>(b) * m_in * cin + c0;
+  const T* g_b = g + static_cast<size_t>(b) * m_out * cout + n0;
+  const int* ti = t_idx + (static_cast<size_t>(b) * k_taps + (tap ? k : 0)) * m_in;
+  // this lane's row of the stage at j0: its g row, or -1
+  auto row_index = [&](int j0) {
+    const int j = j0 + lane;
+    const int i = tap && j < j_end ? ti[j] : -1;
+    return static_cast<unsigned>(i) < static_cast<unsigned>(m_out) ? i : -1;
+  };
+  auto load = [&](int j0, int i, bool feats_too, int buf) {
+    if (feats_too)
+      copy_rows(f_vec, f_s + buf * kWStage * kTC, kTC, f_b + static_cast<size_t>(j0) * cin,
+                cin, min(kWStage, j_end - j0), cc, tid, blockDim.x);
+    if (i >= 0)
+      copy_row(g_vec, g_s + (buf * kWStage + lane) * kTN, g_b + static_cast<size_t>(i) * cout,
+               nc);
+    cp_async_commit();
+  };
 
-  float acc[kCPerThread];
+  float acc[Tile::kRC][Tile::kRN];
 #pragma unroll
-  for (int q = 0; q < kCPerThread; ++q) acc[q] = 0.f;
+  for (int i = 0; i < Tile::kRC; ++i)
+#pragma unroll
+    for (int q = 0; q < Tile::kRN; ++q) acc[i][q] = 0.f;
+  const int lc = (lane / Tile::kLanesN) * Tile::kRC;
+  const int ln = (lane % Tile::kLanesN) * Tile::kRN;
 
+  int i_next = row_index(j_begin);
+  unsigned live = __ballot_sync(0xffffffffu, i_next >= 0);
+  load(j_begin, i_next, __syncthreads_or(live != 0), 0);
+  i_next = row_index(j_begin + kWStage);
+  int buf = 0;
   for (int j0 = j_begin; j0 < j_end; j0 += kWStage) {
-    for (int e = tid; e < kWStage * kWTileC; e += kThreads) {
-      const int r = e / kWTileC;
-      const int c = e - r * kWTileC;
-      const int j = j0 + r;
-      f_s[r][c] = (j < j_end && c0 + c < cin)
-                      ? to_float(f_b[static_cast<size_t>(j) * cin + c0 + c]) : 0.f;
-    }
-    for (int e = tid; e < kWStage * kTileN; e += kThreads) {
-      const int r = e / kTileN;
-      const int n = e - r * kTileN;
-      const int j = j0 + r;
-      float v = 0.f;
-      if (j < j_end && n0 + n < cout) {
-        const int i = ti[j];
-        if (i >= 0 && i < m_out) v = to_float(g_b[static_cast<size_t>(i) * cout + n0 + n]);
-      }
-      g_s[r][n] = v;
-    }
-    __syncthreads();
-    for (int r = 0; r < kWStage; ++r) {
-      const float gv = g_s[r][col];
+    const int j1 = j0 + kWStage;
+    const int i1 = i_next;
+    const unsigned live1 = __ballot_sync(0xffffffffu, i1 >= 0);
+    i_next = row_index(j1 + kWStage);   // read a stage ahead of its copies
+    cp_async_wait<0>();                 // this thread's copies of stage j0 have landed
+    // ... everyone's; stage j0 - 32's buffers are no longer read; and does any tap
+    // of the group have a live row at stage j1
+    const bool any1 = __syncthreads_or(live1 != 0);
+    if (j1 < j_end) load(j1, i1, any1, buf ^ 1);
+    const T* f_r = f_s + buf * kWStage * kTC + lc;
+    const T* g_r = g_s + buf * kWStage * kTN + ln;
+    for (unsigned m = live; m; m &= m - 1) {
+      const int r = __ffs(m) - 1;
+      float fv[Tile::kRC], gv[Tile::kRN];
+      load_f32(fv, f_r + r * kTC);
+      load_f32(gv, g_r + r * kTN);
 #pragma unroll
-      for (int q = 0; q < kCPerThread; ++q)
-        acc[q] = fmaf(f_s[r][crow + q * kRowStep], gv, acc[q]);
+      for (int i = 0; i < Tile::kRC; ++i)
+#pragma unroll
+        for (int q = 0; q < Tile::kRN; ++q) acc[i][q] = fmaf(fv[i], gv[q], acc[i][q]);
     }
-    __syncthreads();
+    live = live1;
+    buf ^= 1;
   }
 
-  const int n = n0 + col;
-  if (n >= cout) return;
+  if (!tap) return;
   float* p = partials + (static_cast<size_t>(k) * gridDim.x + chunk) * cin * cout;
 #pragma unroll
-  for (int q = 0; q < kCPerThread; ++q) {
-    const int c = c0 + crow + q * kRowStep;
-    if (c < cin) p[static_cast<size_t>(c) * cout + n] = acc[q];
+  for (int i = 0; i < Tile::kRC; ++i) {
+    const int c = lc + i;
+    if (c >= cc) continue;
+#pragma unroll
+    for (int q = 0; q < Tile::kRN; ++q) {
+      const int n = ln + q;
+      if (n < nc) p[static_cast<size_t>(c0 + c) * cout + n0 + n] = acc[i][q];
+    }
   }
 }
 
@@ -799,31 +968,56 @@ sparse_conv_wgrad_reduce_kernel(const float* __restrict__ partials, float* __res
   out[e] = s;
 }
 
-template <typename T, int kTileN>
-void launch_wgrad(const void* feats, const void* t_idx, const void* g, float* partials,
-                  float* out, int batch, int m_in, int m_out, int k_taps, int cin, int cout,
-                  int rows_per_chunk, int n_chunks, cudaStream_t stream) {
-  const int tiles = ((cin + kWTileC - 1) / kWTileC) * ((cout + kTileN - 1) / kTileN);
-  const dim3 grid(batch * n_chunks, k_taps, tiles);
-  sparse_conv_wgrad_partial_kernel<T, kTileN><<<grid, kThreads, 0, stream>>>(
+template <typename T, int kTC, int kTN>
+int launch_wgrad(const void* feats, const void* t_idx, const void* g, float* partials,
+                 float* out, int batch, int m_in, int m_out, int k_taps, int cin, int cout,
+                 int rows_per_chunk, int n_chunks, cudaStream_t stream) {
+  const int groups = (k_taps + kWMaxWarps - 1) / kWMaxWarps;
+  const int warps = (k_taps + groups - 1) / groups;
+  const size_t smem =
+      (2 * kWStage * kTC + static_cast<size_t>(warps) * 2 * kWStage * kTN) * sizeof(T);
+  static bool granted[kMaxDevices] = {};
+  const cudaError_t err = allow_max_smem(
+      reinterpret_cast<const void*>(sparse_conv_wgrad_partial_kernel<T, kTC, kTN>), granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = ((cin + kTC - 1) / kTC) * ((cout + kTN - 1) / kTN);
+  const dim3 grid(batch * n_chunks, groups, tiles);
+  sparse_conv_wgrad_partial_kernel<T, kTC, kTN><<<grid, warps * 32, smem, stream>>>(
       static_cast<const T*>(feats), static_cast<const int*>(t_idx), static_cast<const T*>(g),
-      partials, m_in, m_out, k_taps, cin, cout, rows_per_chunk, n_chunks);
+      partials, m_in, m_out, k_taps, cin, cout, rows_per_chunk, n_chunks,
+      copy_bytes<T>(feats, cin), copy_bytes<T>(g, cout));
   const size_t total = static_cast<size_t>(k_taps) * cin * cout;
   sparse_conv_wgrad_reduce_kernel<<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
                                     kThreads, 0, stream>>>(partials, out, k_taps,
                                                            batch * n_chunks, cin * cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tile: Cin up to 4, 16 or 32 (more in tiles of 32) x Cout up to 16 or 32 (more
+// in tiles of 32)
+template <typename T, int kTN>
+int dispatch_wgrad_cin(const void* feats, const void* t_idx, const void* g, float* partials,
+                       float* out, int batch, int m_in, int m_out, int k_taps, int cin, int cout,
+                       int rows_per_chunk, int n_chunks, cudaStream_t stream) {
+  if (cin <= 4)
+    return launch_wgrad<T, 4, kTN>(feats, t_idx, g, partials, out, batch, m_in, m_out, k_taps,
+                                   cin, cout, rows_per_chunk, n_chunks, stream);
+  if (cin <= 16)
+    return launch_wgrad<T, 16, kTN>(feats, t_idx, g, partials, out, batch, m_in, m_out, k_taps,
+                                    cin, cout, rows_per_chunk, n_chunks, stream);
+  return launch_wgrad<T, 32, kTN>(feats, t_idx, g, partials, out, batch, m_in, m_out, k_taps,
+                                  cin, cout, rows_per_chunk, n_chunks, stream);
 }
 
 template <typename T>
-void dispatch_wgrad(const void* feats, const void* t_idx, const void* g, float* partials,
-                    float* out, int batch, int m_in, int m_out, int k_taps, int cin, int cout,
-                    int rows_per_chunk, int n_chunks, cudaStream_t stream) {
+int dispatch_wgrad(const void* feats, const void* t_idx, const void* g, float* partials,
+                   float* out, int batch, int m_in, int m_out, int k_taps, int cin, int cout,
+                   int rows_per_chunk, int n_chunks, cudaStream_t stream) {
   if (cout <= 16)
-    launch_wgrad<T, 16>(feats, t_idx, g, partials, out, batch, m_in, m_out, k_taps, cin, cout,
-                        rows_per_chunk, n_chunks, stream);
-  else
-    launch_wgrad<T, 32>(feats, t_idx, g, partials, out, batch, m_in, m_out, k_taps, cin, cout,
-                        rows_per_chunk, n_chunks, stream);
+    return dispatch_wgrad_cin<T, 16>(feats, t_idx, g, partials, out, batch, m_in, m_out, k_taps,
+                                     cin, cout, rows_per_chunk, n_chunks, stream);
+  return dispatch_wgrad_cin<T, 32>(feats, t_idx, g, partials, out, batch, m_in, m_out, k_taps,
+                                   cin, cout, rows_per_chunk, n_chunks, stream);
 }
 
 }  // namespace
@@ -846,7 +1040,8 @@ extern "C" int sparse_conv_forward(const void* feats, const void* idx, const voi
 
 // Weight gradient: pass 1 into partials f32 [K, batch * n_chunks, Cin, Cout], pass 2
 // into out f32 [K, Cin, Cout]. dtype: 0 = float32, 1 = bfloat16 (feats and g).
-// Returns cudaGetLastError() after the two launches.
+// Returns cudaGetLastError() after the two launches (or the error of setting the
+// first pass's shared-memory limit).
 extern "C" int sparse_conv_wgrad(const void* feats, const void* t_idx, const void* g,
                                  void* partials, void* out, int batch, int m_in, int m_out,
                                  int k_taps, int cin, int cout, int rows_per_chunk,
@@ -861,10 +1056,8 @@ extern "C" int sparse_conv_wgrad(const void* feats, const void* t_idx, const voi
   float* p = static_cast<float*>(partials);
   float* o = static_cast<float*>(out);
   if (dtype == 0)
-    dispatch_wgrad<float>(feats, t_idx, g, p, o, batch, m_in, m_out, k_taps, cin, cout,
-                          rows_per_chunk, n_chunks, s);
-  else
-    dispatch_wgrad<__nv_bfloat16>(feats, t_idx, g, p, o, batch, m_in, m_out, k_taps, cin,
-                                  cout, rows_per_chunk, n_chunks, s);
-  return static_cast<int>(cudaGetLastError());
+    return dispatch_wgrad<float>(feats, t_idx, g, p, o, batch, m_in, m_out, k_taps, cin, cout,
+                                 rows_per_chunk, n_chunks, s);
+  return dispatch_wgrad<__nv_bfloat16>(feats, t_idx, g, p, o, batch, m_in, m_out, k_taps, cin,
+                                       cout, rows_per_chunk, n_chunks, s);
 }

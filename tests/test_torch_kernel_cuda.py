@@ -60,16 +60,38 @@ def case_id(c):
 
 def apply_liveness(ix, live):
     """Kill rows of a gather index [B, K, M] in place: ``tail60`` every
-    entry of rows from 60 % of M on, ``dead`` every entry, ``mixed`` the
-    second scene's rows from 30 % of M on."""
+    entry of rows from 60 % of M on, ``half`` from 50 %, ``dead`` every
+    entry, ``mixed`` the second scene's rows from 30 % of M on,
+    ``scene0_dead`` every entry of the first scene; ``stages`` the rows of
+    the second and of the fourth and fifth 32-row stages on every tap
+    (stages with no live row for any tap, which the wgrad kernel neither
+    stages nor multiplies) and every row of tap 3."""
     m = ix.shape[-1]
     if live == "tail60":
         ix[:, :, int(0.6 * m):] = -1
+    elif live == "half":
+        ix[:, :, m // 2:] = -1
     elif live == "dead":
         ix[:] = -1
     elif live == "mixed":
         ix[1, :, int(0.3 * m):] = -1
+    elif live == "scene0_dead":
+        ix[0] = -1
+    elif live == "stages":
+        ix[:, :, 32:64] = -1
+        ix[:, :, 96:160] = -1
+        ix[:, 3] = -1
     return ix
+
+
+def apply_rulebook_liveness(idx, t_idx, live):
+    """Kill rows of the transposed rulebook t_idx [B, K, M_in] (the wgrad's
+    gather index) with :func:`apply_liveness`, and the entries of idx
+    [B, K, M_out] that pointed at them, so both stay per-tap transposes."""
+    apply_liveness(t_idx, live)
+    safe = np.where(idx >= 0, idx, 0)
+    idx[(idx >= 0) & (np.take_along_axis(t_idx, safe, axis=2) < 0)] = -1
+    return idx, t_idx
 
 
 def make_inputs(seed, k, cin, cout, m_in, m_out, batch=2):
@@ -192,3 +214,51 @@ def test_cuda_sparse_conv_has_grad_fn(cuda_device):
     SC.sparse_conv_t(fc, ix.cpu(), torch.from_numpy(t_idx), wc).square().sum().backward()
     torch.testing.assert_close(f.grad.cpu(), fc.grad, **TOL["float32"])
     _wgrad_close(tw.grad.cpu(), wc.grad)
+
+
+# (K, Cin, Cout, M_in, M_out, dtype[, liveness of t_idx]): the wgrad kernel's
+# paths. Several row chunks with a ragged last one (M 1000: 3 x 256 + 232),
+# K1 and K8 (one block of 1 and of 8 warps) above one chunk, a scene all
+# dead beside a live one, the stem's Cin 3 (4-wide tile; bf16 rows of 6 bytes
+# by plain loads) with half the rows dead, whole dead stages and a dead tap,
+# Cin 40 x Cout 80 (two input- and three output-channel tiles), Cin 24 x
+# Cout 24, and odd widths (4-byte copies in f32, plain loads in bf16)
+WGRAD_CASES = [
+    (27, 16, 16, 1000, 1000, "float32"),
+    (27, 16, 16, 1000, 1000, "bfloat16"),
+    (1, 32, 16, 700, 700, "float32"),
+    (1, 32, 16, 700, 700, "bfloat16"),
+    (8, 16, 32, 600, 400, "float32"),
+    (8, 16, 32, 600, 400, "bfloat16"),
+    (8, 32, 16, 400, 600, "float32"),
+    (27, 16, 16, 520, 520, "float32", "scene0_dead"),
+    (27, 16, 16, 520, 520, "bfloat16", "scene0_dead"),
+    (27, 3, 16, 600, 600, "float32", "half"),
+    (27, 3, 16, 600, 600, "bfloat16", "half"),
+    (27, 16, 16, 600, 600, "float32", "stages"),
+    (27, 32, 32, 600, 600, "bfloat16", "stages"),
+    (27, 40, 80, 300, 300, "float32"),
+    (27, 24, 24, 300, 300, "bfloat16"),
+    (8, 5, 7, 300, 300, "float32"),
+    (8, 5, 7, 300, 300, "bfloat16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGRAD_CASES, ids=case_id)
+def test_cuda_wgrad_kernel_matches_reference(cuda_device, case):
+    k, cin, cout, m_in, m_out, dt, *live = case
+    feats, _, t_idx, _ = make_rulebook_inputs(sum(case[:5]), k, cin, cout, m_in, m_out)
+    apply_liveness(t_idx, live[0] if live else None)
+    g = np.random.default_rng(2).normal(size=(2, m_out, cout)).astype(np.float32)
+    f = torch.from_numpy(feats).to(cuda_device, TORCH_DT[dt])
+    ti = torch.from_numpy(t_idx).to(cuda_device)
+    g = torch.from_numpy(g).to(cuda_device, TORCH_DT[dt])
+    before = SC.WGRAD.launches
+    d_w = SC.conv_wgrad(f, ti, g)
+    d_w2 = SC.conv_wgrad(f, ti, g)
+    torch.cuda.synchronize()
+    assert SC.WGRAD.launches == before + 2
+    assert d_w.dtype == torch.float32 and d_w.shape == (k, cin, cout)
+    assert torch.equal(d_w, d_w2)                 # no atomics: bit-identical
+    _wgrad_close(d_w, SC.sparse_conv_wgrad_reference(f, ti, g))

@@ -22,9 +22,11 @@ import torch
 
 from sparse_rcnn_tpu.ops import sparse_conv as JSC
 from sparse_rcnn_tpu_torch.ops import sparse_conv as SC
-from tests.test_torch_kernel_cuda import TOL, TORCH_DT, make_rulebook_inputs
+from tests.test_torch_kernel_cuda import (TOL, TORCH_DT, apply_rulebook_liveness,
+                                          make_rulebook_inputs)
 
-# (K, Cin, Cout, M_in, M_out, dtype, feats need a gradient, caller gives t_idx)
+# (K, Cin, Cout, M_in, M_out, dtype, feats need a gradient, caller gives
+# t_idx[, rows of M_in killed in both rulebooks: see apply_liveness])
 CASES = [
     (27, 16, 24, 203, 203, "float32", True, True),     # submanifold, ragged M
     (27, 3, 16, 120, 120, "float32", False, True),     # the stem: no dgrad
@@ -33,13 +35,20 @@ CASES = [
     (1, 32, 16, 77, 77, "float32", True, False),       # 1x1 projection
     (27, 16, 16, 200, 200, "bfloat16", True, True),
     (8, 16, 32, 200, 131, "bfloat16", True, False),
+    # two scenes of different liveness
+    (27, 16, 16, 200, 200, "float32", True, True, "mixed"),
+    # the stem's Cin 3 with half the rows dead
+    (27, 3, 16, 120, 120, "float32", False, True, "half"),
+    # 32-row stages dead on every tap (the wgrad kernel skips them) and a dead tap
+    (27, 16, 16, 200, 200, "float32", True, False, "stages"),
 ]
 MODES = ("scan", "pallas")
 
 
 def case_id(c):
     return "K{}_{}x{}_M{}to{}_{}_{}_{}".format(
-        *c[:6], "dgrad" if c[6] else "nodgrad", "t_idx" if c[7] else "transpose")
+        *c[:6], "dgrad" if c[6] else "nodgrad", "t_idx" if c[7] else "transpose"
+    ) + "".join(f"_{x}" for x in c[8:])
 
 
 def _jax_vjp(mode, feats, idx, t_idx, w, g, dt):
@@ -79,8 +88,9 @@ def _port_grads(feats, idx, t_idx, w, g, dt, feats_grad):
 
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_backward_matches_jax_vjp(case, monkeypatch):
-    k, cin, cout, m_in, m_out, dt, feats_grad, given = case
+    k, cin, cout, m_in, m_out, dt, feats_grad, given, *live = case
     feats, idx, t_idx, w = make_rulebook_inputs(sum(case[:5]), k, cin, cout, m_in, m_out)
+    apply_rulebook_liveness(idx, t_idx, live[0] if live else None)
     g = np.random.default_rng(7).normal(size=(2, m_out, cout)).astype(np.float32)
     dgrads = []
     real = SC.conv_dgrad
