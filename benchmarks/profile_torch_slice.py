@@ -3,7 +3,9 @@
 their time on the card.
 
     python benchmarks/profile_torch_slice.py [--config configs/config1_tiny_5cm.yaml]
-        [--scenes 3] [--out-dir chiprun_out/profile]
+        [--set key.path=value ...] [--scenes 3] [--out-dir DIR]
+    python benchmarks/profile_torch_slice.py --config configs/config2_scannet_2cm.yaml \
+        --set data.dataset=synthetic --scenes 2
 
 Runs the port (``sparse_rcnn_tpu_torch``, seeded init) on CUDA, each step
 split into stages with a synchronise after each:
@@ -19,8 +21,11 @@ First without the profiler (host clock), then under ``torch.profiler`` with
 CPU and CUDA activities. From the trace, per stage and per step: wall ms,
 device busy ms (the union of the kernel and copy intervals), the idle
 share, and the number of device operations; and the kernels that take the
-most device time. Prints one JSON line and writes it, with the gzipped
-chrome traces, to ``--out-dir``. Needs a CUDA card; imports no JAX.
+most device time; the peak device memory of each kind of step. With a
+dense tail, the eval step runs the eval form (``dense_from_scale``) and the
+train step the train form (``dense_from_scale_train``) of one seeded init.
+Prints one JSON line and writes it, with the gzipped chrome traces, to
+``--out-dir``. Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ def eval_step(cfg, model, batch) -> dict:
 def train_step(cfg, state, batch) -> dict:
     """One training step by stage, as ``TL.train_step`` runs it (without
     EMA); updates ``state`` in place and returns the host ms of each stage."""
+    cfg = TL.train_cfg(cfg)
     stage = Stages()
     model = state.model
     params = list(model.parameters())
@@ -125,7 +131,9 @@ def measure(run, items, stage_names, trace_path) -> dict:
     and idle share, device operations, top device consumers."""
     for it in items:
         run(it)
+    torch.cuda.reset_peak_memory_stats()
     host = [run(it) for it in items for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for it in items:
             run(it)
@@ -168,6 +176,7 @@ def measure(run, items, stage_names, trace_path) -> dict:
     os.remove(trace_path)
     return {
         "steps": n,
+        "peak_bytes": peak,
         "unprofiled_ms_per_step": {k: statistics.median(h[k] for h in host)
                                    for k in host[0]},
         "profiled_per_step": stages,
@@ -179,6 +188,7 @@ def measure(run, items, stage_names, trace_path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default=os.path.join(ROOT, "configs", "config1_tiny_5cm.yaml"))
+    ap.add_argument("--set", action="append", dest="overrides", metavar="key.path=value")
     ap.add_argument("--scenes", type=int, default=3, help="val scenes, and train batches")
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "chiprun_out", "profile"))
     args = ap.parse_args(argv)
@@ -189,9 +199,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.deterministic = True      # as the train entry point
     os.makedirs(args.out_dir, exist_ok=True)
 
-    cfg = load_config(args.config)
+    cfg = load_config(args.config, infer.parse_overrides(args.overrides))
     gen = torch.Generator().manual_seed(cfg.train.seed)
-    model = TL.build_model(cfg, "cuda", gen)
+    model = TL.eval_model(cfg, TL.build_model(TL.train_cfg(cfg), "cuda", gen))
     val = [TL.to_device(b, "cuda") for b in infer.scene_batches(cfg, "val", args.scenes)]
     ev = measure(lambda b: eval_step(cfg, model, b), val, EVAL_STAGES,
                  os.path.join(args.out_dir, "trace_eval.json"))
@@ -204,7 +214,7 @@ def main(argv=None) -> int:
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0],
-        "config": cfg.name, "batch_size": cfg.data.batch_size, "eval": ev, "train": tr,
+        "config": cfg.name, "overrides": args.overrides or [], "batch_size": cfg.data.batch_size, "eval": ev, "train": tr,
     }
     with open(os.path.join(args.out_dir, "profile.json"), "w") as f:
         json.dump(result, f, indent=1)

@@ -35,8 +35,23 @@ nonzero:
    inputs the main path gave them;
 7. the committed weights reproduce JAX's 3-step train trajectory
    ``tests/fixtures/golden_config1_train.npz`` on the card;
-8. a ``kernels`` JSON line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+8. config 2 (``configs/config2_scannet_2cm.yaml``, ``data.dataset=synthetic``
+   the only override) at full width, bf16: ``infer.main`` on one batch
+   (dense tail from scale 2; one launch per sparse conv) and
+   ``train.main`` for 3 steps (dense tail from scale 3; forward, dgrad and
+   wgrad launches per step; finite losses, parameters f32); on
+   ``bench.py``'s scenes (262144 points, 12 instances, augmented and
+   cropped): one scene's integer tables and dense occupancy bit-exact
+   against the CPU, the overflow counters (0) and ``dense_tail_oob``
+   against a count of the dropped sites made in numpy from the points,
+   every sparse conv of one eval forward and every dgrad and wgrad of one
+   train step against its plain version, dense-2 against the same weights
+   converted to fully sparse in f32 and bf16 on a batch that drops no
+   site, one train step bit-identical run to run and with remat (peak
+   memory of each), the wgrad partials buffer, and warm ms per scene of
+   the eval step and per train step;
+9. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
+   under ``config1``), then as the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
 algorithms, so every f32 comparison holds f32 against f32. Detailed
@@ -63,8 +78,12 @@ from benchmarks import profile_torch_slice as PROF
 from sparse_rcnn_tpu_torch import infer
 from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.data import synthetic
-from sparse_rcnn_tpu_torch.data.pipeline import TrainStream
+from sparse_rcnn_tpu_torch.data.augment import augment_scene
+from sparse_rcnn_tpu_torch.data.pipeline import TrainStream, collate
+from sparse_rcnn_tpu_torch.models.convert import convert_variables
+from sparse_rcnn_tpu_torch.models.layers import SparseConv
 from sparse_rcnn_tpu_torch.models.transfer import from_flax, unflatten_variables
+from sparse_rcnn_tpu_torch.models.unet import scatter_to_grid
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
 from sparse_rcnn_tpu_torch.train import loop as TL
 
@@ -74,6 +93,13 @@ CONFIG1 = os.path.join(ROOT, "configs", "config1_tiny_5cm.yaml")
 GOLDEN = os.path.join(ROOT, "tests", "e2e", "golden_config1.npz")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_config1_params.npz")
 TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_config1_train.npz")
+CONFIG2 = os.path.join(ROOT, "configs", "config2_scannet_2cm.yaml")
+C2_SET = ["data.dataset=synthetic"]      # the only override of config 2
+C2_TRAIN_STEPS = 3
+# dense-2 against fully sparse in bf16, per scale, of the largest entry: the
+# two forms round to bf16 after different sums (dense convs against
+# gathered taps) through up to 16 blocks
+DENSE_SPARSE_BF16 = 5e-2
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
 # flop/s per input type (f32 outside the tensor cores)
@@ -122,6 +148,12 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 WGRAD_RTOL = 1e-4
 TRAIN_STEPS = 5
 SPIN_CYCLES = 2_000_000         # about 1 ms of the card's clock
+# ``time_ms`` arguments of the kernel, plain and library timings; fewer
+# (QUICK_REPS) on config 2's main path, whose convs move 16x the rows
+REPS = {"kernel": dict(reps=30, inner=10), "plain": dict(reps=20, inner=1),
+        "library": dict(reps=20, inner=10)}
+QUICK_REPS = {"kernel": dict(reps=10, inner=5), "plain": dict(reps=5, inner=1),
+              "library": dict(reps=5, inner=2)}
 PER_STEP = (10, 9, 10)          # forward, dgrad (the stem's input needs none), wgrad
 # card against CPU, one config-1 step, per parameter relative to the
 # largest entry of its gradient. Outside the RoI head: with the mask weight
@@ -261,11 +293,13 @@ def library_fn(feats, idx, w):
     return lambda: torch.matmul(fz[ix].reshape(b * m_out, k * cin), w2)
 
 
-def measure_conv(name, feats, idx, w, kernel=sc.KERNEL) -> dict:
+def measure_conv(name, feats, idx, w, kernel=sc.KERNEL, reps=None) -> dict:
     """The gather-GEMM ``kernel`` (the forward, or the dgrad on g, t_idx and
     Wᵀ) against its plain version on these inputs, with kernel, plain,
-    library and bound times. The bound counts the bytes of idx, feats, W
-    and out, each once, and the products of this idx's live entries."""
+    library and bound times (``reps``: the ``time_ms`` arguments of each,
+    by default ``REPS``). The bound counts the bytes of idx, feats, W and
+    out, each once, and the products of this idx's live entries."""
+    reps = reps or REPS
     dtype = feats.dtype
     b, m_in, cin = feats.shape
     k, _, cout = w.shape
@@ -288,9 +322,9 @@ def measure_conv(name, feats, idx, w, kernel=sc.KERNEL) -> dict:
         "Cin": cin, "Cout": cout, "M_in": m_in, "M_out": m_out,
         "live_taps": nnz, "dead_pair_share": dead_pair_share(idx, m_in),
         "max_abs_err": err, "tol": TOL[dtype], "ok": bool(ok),
-        "kernel_ms": time_ms(lambda: kernel(feats, idx, w)),
-        "plain_ms": time_ms(lambda: sc.sparse_conv_reference(feats, idx, w), reps=20, inner=1),
-        "library_ms": time_ms(lib, reps=20),
+        "kernel_ms": time_ms(lambda: kernel(feats, idx, w), **reps["kernel"]),
+        "plain_ms": time_ms(lambda: sc.sparse_conv_reference(feats, idx, w), **reps["plain"]),
+        "library_ms": time_ms(lib, **reps["library"]),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
@@ -584,10 +618,11 @@ def bwd_inputs(k, cin, cout, m_in, m_out, dtype, seed, live_rows=(1.0,)):
     return feats, torch.where(miss, -1, rows).contiguous(), g, w
 
 
-def measure_dgrad(name, g, t_idx, w) -> dict:
+def measure_dgrad(name, g, t_idx, w, reps=None) -> dict:
     """The dgrad: the gather-GEMM kernel on (g, t_idx, Wᵀ), measured as the
     forward is (``measure_conv``)."""
-    rec = measure_conv(name, g, t_idx, w.transpose(1, 2).contiguous(), kernel=sc.DGRAD)
+    rec = measure_conv(name, g, t_idx, w.transpose(1, 2).contiguous(), kernel=sc.DGRAD,
+                       reps=reps)
     rec["role"] = "dgrad"
     return rec
 
@@ -608,12 +643,13 @@ def wgrad_library_fn(feats, t_idx, g):
     return lambda: torch.matmul(f_t, gz[ix])
 
 
-def measure_wgrad(name, feats, t_idx, g) -> dict:
+def measure_wgrad(name, feats, t_idx, g, reps=None) -> dict:
     """The wgrad kernel against its plain version on these inputs, checked
     bit-identical across two launches, with kernel, plain, library and
     bound times and the share of (32-row stage, tap) pairs of t_idx with no
     live entry. The bound counts the bytes of t_idx, feats, g and the f32
     out, each once, and the products of t_idx's live entries."""
+    reps = reps or REPS
     dtype = feats.dtype
     b, m_in, cin = feats.shape
     cout = g.shape[2]
@@ -639,10 +675,10 @@ def measure_wgrad(name, feats, t_idx, g) -> dict:
         "dead_pair_share": dead_pair_share(t_idx, g.shape[1], WGRAD_STAGE), "max_abs_err": err,
         "tol": {"rtol": WGRAD_RTOL, "atol": WGRAD_RTOL * scale},
         "bit_identical": same, "ok": bool(ok),
-        "kernel_ms": time_ms(lambda: sc.WGRAD(feats, t_idx, g)),
-        "plain_ms": time_ms(lambda: sc.sparse_conv_wgrad_reference(feats, t_idx, g), reps=20,
-                            inner=1),
-        "library_ms": time_ms(lib, reps=20),
+        "kernel_ms": time_ms(lambda: sc.WGRAD(feats, t_idx, g), **reps["kernel"]),
+        "plain_ms": time_ms(lambda: sc.sparse_conv_wgrad_reference(feats, t_idx, g),
+                            **reps["plain"]),
+        "library_ms": time_ms(lib, **reps["library"]),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
@@ -901,20 +937,302 @@ def phase_golden_train() -> dict:
     return {"metrics_rel_err": worst, "params": params}
 
 
-def kernel_entry(name, source, replaces, launches, recs_all, main_path, library, per) -> dict:
+# --------------------------------------------------------------------------
+# phase 8: config 2 (ScanNet 2 cm) on the card: dense tail, bf16
+
+
+def sparse_convs(model) -> int:
+    """The backbone's sparse convs: launches of one forward."""
+    return sum(isinstance(m, SparseConv) for m in model.backbone.modules())
+
+
+def config2_scenes(cfg, n: int = 4) -> list:
+    """``bench.py``'s config-2 scenes through the port's own generator and
+    augmentation: seeds 100+i, 12 instances, 18 classes, extent 8.0, then
+    the config's augmentation and crop to ``scene_bounds``, rng seed 7."""
+    rng = np.random.default_rng(7)
+    return [augment_scene(synthetic.generate_scene(
+        100 + i, num_points=cfg.data.num_points, num_instances=12, num_classes=18,
+        extent=8.0), cfg.data, rng) for i in range(n)]
+
+
+def oob_sites(cfg, batch, s0: int) -> int:
+    """The sites of scale ``s0`` that fall outside the dense grid, counted
+    in numpy from the points, apart from the port's voxelize, rebase and
+    hierarchy: voxel = floor(point / voxel size), rebased to a least
+    coordinate of 2 per scene (``rebase_coords``' margin), halved ``s0``
+    times."""
+    vs = np.asarray(cfg.data.voxel_size, np.float32)
+    ext = np.asarray(cfg.model.backbone.grid_extent) >> s0
+    n = 0
+    for pts, valid in zip(batch["points"], batch["valid"]):
+        c = np.unique(np.floor(pts[valid.astype(bool)] / vs).astype(np.int64), axis=0)
+        c = np.unique((c - c.min(0) + 2) >> s0, axis=0)
+        n += int(((c < 0) | (c >= ext)).any(1).sum())
+    return n
+
+
+def int_tables(cfg, batch, device) -> dict:
+    """Site sets, rulebooks (none at the dense scales), counters and the
+    dense tail's occupancy of ``batch`` on ``device``."""
+    with torch.no_grad():
+        st, p2v, scales, _, aux = TL.prepare_inputs(cfg, TL.to_device(batch, device,
+                                                                        TL.TRAIN_KEYS))
+        s0 = cfg.model.backbone.dense_from_scale
+        sc0 = scales[s0]
+        ext = [e >> s0 for e in cfg.model.backbone.grid_extent]
+        _, occ = scatter_to_grid(sc0.coords, sc0.nvalid,
+                                 sc0.coords.new_zeros(sc0.coords.shape[:2] + (1,)), ext)
+    out = tables(st, p2v, scales, aux)
+    out["occupancy"] = occ.cpu()
+    return out
+
+
+def dense_vs_sparse(cfg, sd, batch) -> dict:
+    """Per-scale backbone outputs of weights ``sd`` run in the eval form
+    (dense tail) and converted to the fully sparse form, in f32 and in bf16:
+    max |dense - sparse| / max |sparse| per scale. f32 within 2e-3 (rtol and
+    atol, ``tests/parity/test_dense_tail.py``); bf16 within
+    ``DENSE_SPARSE_BF16`` of each scale's largest entry. Also the warm ms
+    of each form's backbone forward."""
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        c_d = load_config(CONFIG2, infer.parse_overrides(C2_SET + [f"model.backbone.dtype={dtype}"]))
+        c_s = load_config(CONFIG2, infer.parse_overrides(C2_SET + [
+            f"model.backbone.dtype={dtype}", "model.backbone.dense_from_scale=None",
+            "model.backbone.dense_from_scale_train=None"]))
+        outs = []
+        for form, c, weights in (("dense-2", c_d, sd),
+                                 ("sparse", c_s, convert_variables(sd, None))):
+            model = TL.build_model(c, DEVICE)
+            model.load_state_dict(weights)
+            with torch.no_grad():
+                st, _, scales, _, _ = TL.prepare_inputs(c, TL.to_device(batch, DEVICE))
+                outs.append([o.float() for o in model.backbone(st.feats, scales)])
+                res[f"backbone_ms_{form}_{dtype}"] = timed_steps(
+                    lambda _: model.backbone(st.feats, scales), [None], reps=3)["median"]
+        errs = []
+        for s, (d, sp) in enumerate(zip(*outs)):
+            scale = sp.abs().max().item()
+            errs.append((d - sp).abs().max().item() / scale)
+            ok = (torch.allclose(d, sp, rtol=2e-3, atol=2e-3) if dtype == "float32"
+                  else errs[-1] <= DENSE_SPARSE_BF16)
+            if not ok:
+                raise AssertionError(f"dense-2 != sparse at scale {s} in {dtype}: "
+                                     f"max |diff| / max |sparse| {errs[-1]:.3e}")
+        res[dtype] = errs
+    errs = {k: [float(f"{e:.3e}") for e in res[k]] for k in ("float32", "bfloat16")}
+    log("  dense-2 vs fully sparse, same weights, per scale max |dense - sparse| / max "
+        f"|sparse|: {json.dumps(errs)} (f32 rtol=atol=2e-3, bf16 {DENSE_SPARSE_BF16} of the largest entry); backbone "
+        "forward, warm ms (median of 3): " + json.dumps(
+            {k: round(v, 3) for k, v in res.items() if k.startswith("backbone_ms")}))
+    return res
+
+
+def timed_steps(fn, items, reps: int) -> dict:
+    """Host ms of ``fn(item)`` ending in a synchronise, warm: median, min and
+    max over ``reps`` runs of every item after one warm-up run each."""
+    times = []
+    for i, it in enumerate(items):
+        for r in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(it)
+            torch.cuda.synchronize()
+            if r:
+                times.append((time.perf_counter() - t0) * 1e3)
+    return {"median": statistics.median(times), "min": min(times), "max": max(times),
+            "n": len(times)}
+
+
+def phase_config2(out_dir: str) -> dict:
+    cfg = load_config(CONFIG2, infer.parse_overrides(C2_SET))
+    tcfg = TL.train_cfg(cfg)
+    bb = cfg.model.backbone
+    log(f"[phase 8] {cfg.name} (--set {' '.join(C2_SET)}) at full width: widths "
+        f"{list(bb.widths)}, {bb.blocks_per_scale} blocks per scale, {bb.dtype}, dense tail "
+        f"from scale {bb.dense_from_scale} (eval) and {tcfg.model.backbone.dense_from_scale} "
+        f"(train), grid {list(bb.grid_extent)}, {cfg.data.num_points} points, batch "
+        f"{cfg.data.batch_size}, capacities {list(cfg.scale_capacities())}")
+    sets = sum((["--set", x] for x in C2_SET), [])
+    init = TL.build_model(tcfg, DEVICE, torch.Generator().manual_seed(cfg.train.seed))
+    ev = TL.eval_model(cfg, init)
+    n_eval, n_train = sparse_convs(ev), sparse_convs(init)
+    rep = {"sparse_convs": {"eval": n_eval, "train": n_train}}
+
+    # the main paths, through the entry points a user calls
+    reset_counts()
+    infer.main(["--config", CONFIG2, *sets, "--num-scenes", str(cfg.data.batch_size),
+                "--out-dir", os.path.join(out_dir, "infer_config2"), "--device", DEVICE])
+    torch.cuda.synchronize()
+    rep["launches_infer"] = counts()
+    log(f"  launches in infer.main, one batch (forward, dgrad, wgrad): {counts()}, "
+        f"expected ({n_eval}, 0, 0)")
+    if counts() != (n_eval, 0, 0):
+        raise AssertionError(f"config-2 infer.main launched {counts()}")
+    log_path = os.path.join(out_dir, "train_log_config2.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    reset_counts()
+    state = train_cli.main(["--config", CONFIG2, *sets, "--set",
+                            f"train.total_steps={C2_TRAIN_STEPS}", "--set", "train.log_every=1",
+                            "--device", DEVICE, "--log-file", log_path])
+    torch.cuda.synchronize()
+    rep["launches_train"] = counts()
+    want = (C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * (n_train - 1), C2_TRAIN_STEPS * n_train)
+    log(f"  launches in train.main over {C2_TRAIN_STEPS} steps: {counts()}, expected {want}")
+    if counts() != want:
+        raise AssertionError(f"config-2 train.main launched {counts()}, expected {want}")
+    with open(log_path) as f:
+        steps = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    keys = ("rpn_obj", "rpn_box", "roi_cls", "roi_mask", "semantic", "total", "grad_norm")
+    if len(steps) != C2_TRAIN_STEPS or not all(np.isfinite(r[k]) for r in steps for k in keys):
+        raise AssertionError(f"config-2 train.main logged {steps}")
+    if not all(t.dtype == torch.float32 for t in state.model.state_dict().values()):
+        raise AssertionError("config-2 training left a parameter or statistic not in f32")
+    rep["losses"] = steps
+    log("  losses per step: " + json.dumps([{k: round(r[k], 5) for k in ("step",) + keys}
+                                            for r in steps]) + "; parameters stay f32")
+    del state
+
+    scenes = config2_scenes(cfg)
+    bs = cfg.data.batch_size
+    batches = [collate(scenes[i:i + bs]) for i in range(0, len(scenes), bs)]
+    # the integer tables of one scene, card against CPU
+    one = {k: v[:1] for k, v in batches[0].items()}
+    tab_g, tab_c = int_tables(cfg, one, DEVICE), int_tables(cfg, one, "cpu")
+    for key in tab_c:
+        if not torch.equal(tab_g[key], tab_c[key]):
+            raise AssertionError(f"config 2: table {key} differs between card and CPU")
+    log(f"  scene 0 tables (site sets, rulebooks of scales 0-1, none at 2-4, counters, "
+        f"occupancy of the scale-2 grid, {int(tab_g['occupancy'].sum())} cells): "
+        f"card and CPU bit-exact ({len(tab_c)} tables)")
+    # counters of the bench batches, eval and train forms
+    rep["counters"] = []
+    for i, b in enumerate(batches):
+        for c in (cfg, tcfg):
+            with torch.no_grad():
+                aux = TL.prepare_inputs(c, TL.to_device(b, DEVICE, TL.TRAIN_KEYS))[4]
+            cnt = {k: int(aux[k]) for k in ("voxel_overflow", "hierarchy_overflow",
+                                            "dense_tail_oob", "gt_instance_overflow")}
+            cnt["voxels"] = float(aux["voxels_per_scene"])
+            s0 = c.model.backbone.dense_from_scale
+            want = oob_sites(c, b, s0)
+            rep["counters"].append({"batch": i, "dense_from_scale": s0, **cnt})
+            log(f"  batch {i}, dense-{s0}: {json.dumps(cnt)}; sites outside the grid "
+                f"counted from the points: {want}")
+            if cnt["dense_tail_oob"] != want or cnt["voxel_overflow"] or cnt["hierarchy_overflow"]:
+                raise AssertionError(f"config 2, batch {i}: counters {cnt}, {want} sites "
+                                     "outside the grid counted from the points")
+    # dense == sparse holds where the tail drops no site
+    exact = [i for i, r in enumerate(rep["counters"])
+             if r["dense_from_scale"] == bb.dense_from_scale and not r["dense_tail_oob"]]
+    if not exact:
+        raise AssertionError("config 2: every bench batch drops sites from the dense grid")
+
+    # eval: the forward kernel on one forward's inputs
+    tb = [TL.to_device(b, DEVICE) for b in batches]
+    calls = capture(lambda: TL.eval_step(cfg, ev, tb[0]), "conv_forward")
+    if len(calls) != n_eval:
+        raise AssertionError(f"{len(calls)} forward convs in one config-2 forward")
+    log(f"  sparse_conv kernel vs plain version on the {n_eval} convs of one config-2 eval "
+        "forward (bf16 rtol=atol=1e-2)")
+    rep["forward_main_path"] = [measure_conv(f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}",
+                                             f, i, w, reps=QUICK_REPS) for f, i, w in calls]
+    require_ok(rep["forward_main_path"], "config-2 forward, main-path inputs")
+    rep["dense_vs_sparse"] = dense_vs_sparse(cfg, ev.state_dict(),
+                                             batches[rep["counters"][exact[0]]["batch"]])
+    eval_ms = timed_steps(lambda b: TL.eval_step(cfg, ev, b), tb, reps=4)
+    rep["eval_ms_per_scene"] = {k: v / bs if k != "n" else v for k, v in eval_ms.items()}
+    log("  eval step, warm ms per scene (host clock, synchronised, 4 runs of each batch "
+        "after one): " + json.dumps({k: round(v, 3) for k, v in
+                                     rep["eval_ms_per_scene"].items()}))
+    del tb, calls
+
+    # train: the backward kernels on one step's inputs, run to run, remat
+    trb = [TL.to_device(b, DEVICE, TL.TRAIN_KEYS) for b in batches]
+    dg = []
+    wg = capture(lambda: dg.extend(capture(
+        lambda: TL.loss_and_grads(tcfg, copy.deepcopy(init), trb[0]), "conv_dgrad")),
+        "conv_wgrad")
+    if (len(dg), len(wg)) != (n_train - 1, n_train):
+        raise AssertionError(f"{len(dg)} dgrad and {len(wg)} wgrad calls in one step")
+    log(f"  dgrad and wgrad kernels vs plain versions on the inputs of one config-2 train "
+        f"step ({len(dg)} and {len(wg)} calls, bf16; tolerances as in phase 3)")
+    rep["dgrad_main_path"] = [measure_dgrad(f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}",
+                                            g, t, w, reps=QUICK_REPS) for g, t, w in dg]
+    rep["wgrad_main_path"] = [measure_wgrad(f"K{t.shape[1]} {f.shape[2]}->{g.shape[2]}",
+                                            f, t, g, reps=QUICK_REPS) for f, t, g in wg]
+    require_ok(rep["dgrad_main_path"] + rep["wgrad_main_path"],
+               "config-2 backward, main-path inputs")
+    partials = [t.shape[1] * f.shape[0] * sc.wgrad_chunks(f.shape[1])[1] * f.shape[2]
+                * g.shape[2] * 4 for f, t, g in wg]
+    rep["wgrad_partials_max_bytes"] = max(partials)
+    log(f"  wgrad partials buffer: largest {max(partials) / 2**20:.1f} MiB "
+        f"(K x B*chunks x Cin x Cout f32), sum over the step {sum(partials) / 2**20:.1f} MiB")
+    del dg, wg
+
+    runs = {}
+    for remat in (False, True):
+        c = load_config(CONFIG2, infer.parse_overrides(
+            C2_SET + [f"model.backbone.remat={remat}"]))
+        for rerun in (0, 1) if not remat else (0,):
+            model = TL.build_model(TL.train_cfg(c), DEVICE)
+            model.load_state_dict(init.state_dict())
+            st = TL.init_state(c, model=model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, m = TL.train_step(c, st, trb[0])
+            torch.cuda.synchronize()
+            runs[(remat, rerun)] = (st.model.state_dict(), {k: float(v) for k, v in m.items()},
+                                    torch.cuda.max_memory_allocated())
+            del st, model
+    base = runs[(False, 0)]
+    for key, what in (((False, 1), "run to run"), ((True, 0), "remat on vs off")):
+        sd, met, _ = runs[key]
+        differ = sorted(k for k in base[0] if not torch.equal(base[0][k], sd[k]))
+        log(f"  one train step from one state, {what}: parameters and BN statistics "
+            f"differing {differ or 'none'}; loss {met['total']!r} vs {base[1]['total']!r}")
+        if differ or met != base[1]:
+            raise AssertionError(f"config-2 train step, {what}: {differ}, {met} vs {base[1]}")
+    rep["peak_bytes"] = {"remat_off": base[2], "remat_on": runs[(True, 0)][2]}
+    log(f"  torch.cuda.max_memory_allocated over one train step: remat off "
+        f"{base[2] / 2**30:.3f} GiB, remat on {runs[(True, 0)][2] / 2**30:.3f} GiB")
+    del runs, base
+
+    state = TL.init_state(cfg, model=copy.deepcopy(init))
+    rep["train_ms_per_step"] = timed_steps(lambda b: TL.train_step(cfg, state, b), trb, reps=2)
+    log("  train step, warm ms per step (host clock, synchronised, 2 runs of each batch "
+        "after one): " + json.dumps({k: round(v, 3) for k, v in
+                                     rep["train_ms_per_step"].items()}))
+    return rep
+
+
+def totals(main_path) -> dict:
+    """Sums over one step's main-path records: kernel, plain, library and
+    bound ms, and what bounds the step (its bytes over the card's memory rate
+    against its products over the peak rate of their type)."""
     t_bytes = sum(r["bytes"] for r in main_path) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(r["flops"] for r in main_path) / PEAK_FLOPS[torch.float32] * 1e3
+    t_ops = sum(r["flops"] / PEAK_FLOPS[getattr(torch, r["dtype"])] for r in main_path) * 1e3
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in recs_all + main_path),
         "ms": sum(r["kernel_ms"] for r in main_path),
         "plain_ms": sum(r["plain_ms"] for r in main_path),
         "bound_ms": sum(r["bound_ms"] for r in main_path),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": sum(r["library_ms"] for r in main_path),
-        "library": library, "per": per,
+        "max_abs_err": max(r["max_abs_err"] for r in main_path),
     }
+
+
+def kernel_entry(name, source, replaces, launches, recs_all, main_path, library, per,
+                 config1) -> dict:
+    """One kernel of the ``kernels`` line: this slice's main path (config 2,
+    bf16) at the top level, config 1's (f32) under ``config1``."""
+    top = totals(main_path)
+    top["max_abs_err"] = max(r["max_abs_err"] for r in recs_all + main_path + config1)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, **top, "library": library, "per": per,
+            "config1": totals(config1)}
 
 
 def main(argv=None) -> int:
@@ -939,39 +1257,50 @@ def main(argv=None) -> int:
     golden_flips = phase_golden()
     train = phase_train(args.out_dir)
     golden_train = phase_golden_train()
+    c2 = phase_config2(args.out_dir)
 
     src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
     records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
-    fwd, dgrad, wgrad = train["launches"]
+    fwd, dgrad, wgrad = c2["launches_train"]
+    paths = {"config1 infer.main (3 scenes)": (launches, 0, 0),
+             f"config1 train.main ({TRAIN_STEPS} steps)": train["launches"],
+             "config2 infer.main (1 batch)": c2["launches_infer"],
+             f"config2 train.main ({C2_TRAIN_STEPS} steps)": c2["launches_train"]}
+    n_eval, n_train = c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"]
     kernels = {"kernels": [
         dict(kernel_entry(
             "sparse_conv_fwd", src, "sparse_rcnn_tpu/ops/pallas_conv.py:76", fwd, recs,
-            main_path, "feats[idx] im2col gather + torch.matmul (two calls)",
-            "one config-1 forward (10 convs, f32, inference main-path inputs); "
-            f"launches: train.main, {TRAIN_STEPS} steps; per-conv records in {records}"),
-            launches_by_path={"infer.main": launches, "train.main": fwd}),
-        kernel_entry(
+            c2["forward_main_path"], "feats[idx] im2col gather + torch.matmul (two calls)",
+            f"one config-2 eval forward ({n_eval} convs, bf16, dense-2, main-path inputs); "
+            f"launches: config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one config-1 "
+            f"forward (10 convs, f32); per-conv records in {records}", main_path),
+            launches_by_path={k: v[0] for k, v in paths.items()}),
+        dict(kernel_entry(
             "sparse_conv_dgrad", src, "sparse_rcnn_tpu/ops/sparse_conv.py:536", dgrad,
-            [r for r in bwd_recs if r["role"] == "dgrad"], train["dgrad_main_path"],
+            [r for r in bwd_recs if r["role"] == "dgrad"], c2["dgrad_main_path"],
             "g[t_idx] im2col gather + torch.matmul with W^T (two calls)",
-            "one config-1 train step (9 dgrads, f32, main-path inputs); launches: "
-            f"train.main, {TRAIN_STEPS} steps"),
-        kernel_entry(
+            f"one config-2 train step ({n_train - 1} dgrads, bf16, dense-3, main-path "
+            f"inputs); launches: config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one "
+            "config-1 train step (9 dgrads, f32)", train["dgrad_main_path"]),
+            launches_by_path={k: v[1] for k, v in paths.items()}),
+        dict(kernel_entry(
             "sparse_conv_wgrad", src, "sparse_rcnn_tpu/ops/sparse_conv.py:542", wgrad,
-            [r for r in bwd_recs if r["role"] == "wgrad"], train["wgrad_main_path"],
+            [r for r in bwd_recs if r["role"] == "wgrad"], c2["wgrad_main_path"],
             "g[t_idx] gather + torch.matmul with feats^T (two calls)",
-            "one config-1 train step (10 wgrads, f32, main-path inputs); launches: "
-            f"train.main, {TRAIN_STEPS} steps"),
+            f"one config-2 train step ({n_train} wgrads, bf16, dense-3, main-path inputs); "
+            f"launches: config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one config-1 "
+            "train step (10 wgrads, f32)", train["wgrad_main_path"]),
+            launches_by_path={k: v[2] for k, v in paths.items()}),
     ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "convs_random": recs, "convs_main_path": main_path,
               "dead_tile_vs_main_path": dead_vs_main,
               "backward_random": bwd_recs, "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
-              "train": train, "golden_train": golden_train}
+              "train": train, "golden_train": golden_train, "config2": c2}
     with open(os.path.join(args.out_dir, "kernels.json"), "w") as f:
         json.dump(record, f, indent=1)
-    log(f"[phase 8] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[phase 9] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -97,8 +97,8 @@ class BackboneConfig:
     # Dense tail: from this scale on, the backbone runs MASKED DENSE 3D
     # convs on a [E/2^s]^3 grid instead of gather-GEMM sparse convs.
     # Occupancy at stride >= 4 is high enough that dense convs can beat
-    # sparse gathers, and those scales then need no rulebooks at all (the
-    # JAX package's choice for its TPU target; not ported yet). Mathematically
+    # sparse gathers, and those scales then need no rulebooks at all
+    # (models/unet.py::DenseTail). Mathematically
     # EQUIVALENT to the submanifold path (empty cells hold zero features;
     # outputs are re-masked to the active set) — tests/parity asserts it.
     # Requires grid_extent. None = fully sparse backbone.

@@ -2,9 +2,13 @@
 (+ optional colored PLY).
 
     python -m sparse_rcnn_tpu_torch.infer --config configs/config1_tiny_5cm.yaml --num-scenes 3
+    python -m sparse_rcnn_tpu_torch.infer --config configs/config2_scannet_2cm.yaml \
+        --set data.dataset=synthetic
 
 Runs on CUDA unless ``--device cpu``. The weights are the port's own seeded
-init (``train.seed``): restoring a checkpoint comes with ROADMAP §1 item 10.
+init (``train.seed``) of the train form, converted to the eval form where
+the two tail boundaries differ: restoring a checkpoint comes with ROADMAP §1
+item 10.
 """
 
 from __future__ import annotations
@@ -100,7 +104,9 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(args.config, parse_overrides(args.overrides))
     os.makedirs(args.out_dir, exist_ok=True)
-    model = TL.build_model(cfg, device, torch.Generator().manual_seed(cfg.train.seed))
+    # the seeded init of the train form, in the eval form
+    model = TL.eval_model(cfg, TL.build_model(
+        TL.train_cfg(cfg), device, torch.Generator().manual_seed(cfg.train.seed)))
 
     palette = np.random.default_rng(0).integers(40, 255, (256, 3))
     done = 0

@@ -38,8 +38,8 @@ class SparseRCNN(nn.Module):
         bb = cfg.backbone
         self.backbone = SparseUNet(
             in_channels, bb.widths, bb.blocks_per_scale, bb.kernel_size, dtype,
-            dense_from_scale=bb.dense_from_scale, downsample=bb.downsample,
-            dropout=bb.dropout)
+            dense_from_scale=bb.dense_from_scale, grid_extent=bb.grid_extent,
+            remat=bb.remat, downsample=bb.downsample, dropout=bb.dropout)
         self.rpn_scales = tuple(cfg.rpn.rpn_scales or (cfg.rpn.rpn_scale,))
         for s in self.rpn_scales:
             name = "rpn" if s == self.rpn_scales[0] else f"rpn_s{s}"

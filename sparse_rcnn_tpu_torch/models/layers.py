@@ -12,13 +12,19 @@ BN re-masks explicitly.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import sparse_conv as sc
+
+# True while a rematerialised block recomputes its forward in the backward
+# (:func:`remat`): MaskedBatchNorm then leaves its running statistics alone
+_RECOMPUTING = False
 
 
 class SparseConv(nn.Module):
@@ -72,7 +78,9 @@ class MaskedBatchNorm(nn.Module):
     statistics (biased variance) and updates the running ones as flax does:
     ``ra = momentum * ra + (1 - momentum) * batch`` — torch's ``momentum``
     means the reverse. Eval mode uses the running statistics. Statistics are
-    f32; the normalisation runs in the compute dtype and is re-masked.
+    f32; the normalisation runs in the compute dtype and is re-masked. The
+    forward that :func:`remat` recomputes in the backward moves no running
+    statistic (flax's ``nn.remat`` updates them once per step).
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -93,15 +101,45 @@ class MaskedBatchNorm(nn.Module):
             count = torch.clamp(m.sum(), min=1.0)
             mean = (f32 * m).sum(dim=(0, 1)) / count
             var = (torch.square(f32 - mean) * m).sum(dim=(0, 1)) / count
-            with torch.no_grad():
-                self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
-                self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
+            if not _RECOMPUTING:
+                with torch.no_grad():
+                    self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                    self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
         cd = self.dtype
         inv = (torch.rsqrt(var + self.epsilon) * self.scale).to(cd)
         out = (feats.to(cd) - mean.to(cd)) * inv + self.bias.to(cd)
         return out * mask[..., None].to(cd)
+
+
+@contextlib.contextmanager
+def _recomputing():
+    global _RECOMPUTING
+    was, _RECOMPUTING = _RECOMPUTING, True
+    try:
+        yield
+    finally:
+        _RECOMPUTING = was
+
+
+def remat(block: nn.Module, *args):
+    """``block(*args)`` without keeping its activations for the backward
+    (flax's ``nn.remat``): ``torch.utils.checkpoint`` runs the forward again
+    in the backward. The recomputed forward sees the same inputs, weights and
+    batch statistics, so it gives the same bits; it moves no BN running
+    statistic. Without a gradient to take, the block just runs."""
+    if not (torch.is_grad_enabled() and block.training):
+        return block(*args)
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return block(*a)
+        with _recomputing():
+            return block(*a)
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class SparseBasicBlock(nn.Module):

@@ -23,7 +23,8 @@ class ScaleSet:
 
     coords   int32[B, M_s, 3] (sorted per scene, sentinel padding)
     nvalid   int32[B]
-    subm_idx int32[B, K, M_s] submanifold rulebook at this scale
+    subm_idx int32[B, K, M_s] submanifold rulebook at this scale (None at
+             the scales that the dense tail runs)
     down_idx int32[B, 8, M_{s+1}] strided rulebook into the next-coarser
              scale (None at the coarsest scale)
     up_idx   int32[B, 8, M_s] inverse rulebook from the next-coarser scale
@@ -32,7 +33,7 @@ class ScaleSet:
 
     coords: torch.Tensor
     nvalid: torch.Tensor
-    subm_idx: torch.Tensor
+    subm_idx: Optional[torch.Tensor] = None
     down_idx: Optional[torch.Tensor] = None
     up_idx: Optional[torch.Tensor] = None
 
@@ -48,8 +49,14 @@ def _per_scene(fn, *args):
 
 
 def build_hierarchy(st: SparseTensor, num_scales: int,
-                    capacities: Sequence[int], kernel_size: int = 3):
+                    capacities: Sequence[int], kernel_size: int = 3,
+                    subm_scales: Optional[int] = None):
     """Build all site sets and rulebooks for a ``num_scales``-deep sparse UNet.
+
+    ``subm_scales``: rulebooks only for scales below it (None = all). The
+    scales that the dense tail runs need their site sets (to gather its
+    outputs back) but no rulebooks; the last sparse scale still gets its
+    down and up rulebooks, into the tail's first scale.
 
     Returns (scales: List[ScaleSet], overflow int32[B, num_scales-1] — the
     coarse sites dropped at each downsample step).
@@ -59,15 +66,24 @@ def build_hierarchy(st: SparseTensor, num_scales: int,
     coords, nvalid = st.coords, st.nvalid
     scales: List[ScaleSet] = []
     overflows = []
+    n_subm = num_scales if subm_scales is None else subm_scales
     for s in range(num_scales):
-        (subm,) = _per_scene(
-            lambda c, n: (rb.submanifold_rulebook(c, n, kernel_size),),
-            coords, nvalid)
+        subm = None
+        if s < n_subm:
+            (subm,) = _per_scene(
+                lambda c, n: (rb.submanifold_rulebook(c, n, kernel_size),),
+                coords, nvalid)
         if s < num_scales - 1:
             cap_next = capacities[s + 1]
-            oc, on, ovf, down, up = _per_scene(
-                lambda c, n: rb.downsample_with_rulebooks(c, n, 2, cap_next),
-                coords, nvalid)
+            if s < n_subm:
+                oc, on, ovf, down, up = _per_scene(
+                    lambda c, n: rb.downsample_with_rulebooks(c, n, 2, cap_next),
+                    coords, nvalid)
+            else:
+                oc, on, ovf = _per_scene(
+                    lambda c, n: rb.downsample_sites(c, n, 2, cap_next),
+                    coords, nvalid)
+                down = up = None
             overflows.append(ovf)
             scales.append(ScaleSet(coords, nvalid, subm, down, up))
             coords, nvalid = oc, on

@@ -40,6 +40,19 @@ def submanifold_rulebook(coords: torch.Tensor, nvalid: torch.Tensor,
     return coord_ops.table_lookup_bulk(table, coord_ops.pack_coords(q, mask[None]))
 
 
+def downsample_sites(coords: torch.Tensor, nvalid: torch.Tensor, stride: int,
+                     capacity: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The coarse site set alone (no rulebooks), for scales that the dense
+    tail runs: (out_coords int32[capacity, 3] sorted, n_out, overflow), the
+    first three outputs of :func:`downsample_with_rulebooks`."""
+    mask = _live(nvalid, coords.shape[0], coords.device)
+    coarse = torch.where(mask[:, None],
+                         torch.div(coords, stride, rounding_mode="floor"),
+                         _SENTINEL_COORD)
+    ucoords, n_out, _, overflow = coord_ops.unique_coords(coarse, mask, capacity)
+    return ucoords, n_out, overflow
+
+
 def downsample_with_rulebooks(
     coords: torch.Tensor, nvalid: torch.Tensor, stride: int, capacity: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -30,6 +30,7 @@ from ..config import Config
 from ..data.gt import build_scene_gt
 from ..models import layers as Lyr
 from ..models import losses as L
+from ..models.convert import convert_variables
 from ..models.detector import SparseRCNN, paint_instance_masks
 from ..models.targets import roi_targets, rpn_targets
 from ..ops import hierarchy as H
@@ -72,25 +73,33 @@ def prepare_inputs(cfg: Config, batch: Dict[str, torch.Tensor]):
     Returns (SparseTensor, p2v [B, N], scales, gt, aux). ``gt`` is a
     :class:`~..models.targets.SceneGT` when the batch carries the point
     labels (``point_instance``, ``point_semantic``), else None; ``aux``
-    holds the overflow counters (tensors on the batch's device).
+    holds the overflow counters (tensors on the batch's device), with a
+    dense tail also ``dense_tail_oob``: the live sites of its first scale
+    that fall outside the grid and are dropped from it.
     """
-    if cfg.model.backbone.dense_from_scale is not None:
-        raise NotImplementedError(
-            "dense_from_scale: the dense tail is not ported yet — ROADMAP §1 item 14")
     st, p2v, ovf = V.voxelize_batch(
         batch["points"], batch["feats"], batch["valid"], cfg.data.voxel_size,
         cfg.data.voxel_capacity)
     # integer per-scene rebase to non-negative coords: exact, and the frame
     # the dense tail and the GT boxes use
     st, base = V.rebase_coords(st, margin=2)
+    bb = cfg.model.backbone
+    dfs = bb.dense_from_scale
     scales, hovf = H.build_hierarchy(
-        st, len(cfg.model.backbone.widths), cfg.scale_capacities(),
-        cfg.model.backbone.kernel_size)
+        st, len(bb.widths), cfg.scale_capacities(), bb.kernel_size, subm_scales=dfs)
     aux = {
         "voxel_overflow": ovf.sum(),
         "hierarchy_overflow": hovf.sum(),
         "voxels_per_scene": st.nvalid.to(torch.float32).mean(),
     }
+    if dfs is not None:
+        # a site outside the grid at the tail's first scale is outside at
+        # every deeper scale too
+        sc = scales[dfs]
+        ext = torch.tensor([e >> dfs for e in bb.grid_extent], dtype=torch.int32,
+                           device=sc.coords.device)
+        inside = ((sc.coords >= 0) & (sc.coords < ext)).all(-1)
+        aux["dense_tail_oob"] = (sc.row_mask & ~inside).sum()
     gt = None
     if "point_instance" in batch:
         gt = build_scene_gt(
@@ -120,11 +129,30 @@ def finish(cfg: Config, out: Dict[str, torch.Tensor], scales, p2v) -> Dict[str, 
     return result
 
 
+def eval_model(cfg: Config, source) -> SparseRCNN:
+    """The model that :func:`eval_step` runs: ``source`` (a model or a
+    :class:`TrainState`) in the eval form. Weights live in the train form
+    (the tail boundary ``dense_from_scale_train``); when the eval boundary
+    ``dense_from_scale`` differs, a model of the eval form gets them
+    converted, exactly (:mod:`..models.convert`). A model already in the
+    eval form comes back as it is."""
+    model = source.model if isinstance(source, TrainState) else source
+    dfs = cfg.model.backbone.dense_from_scale
+    if model.backbone.dense_from_scale == dfs:
+        return model
+    out = build_model(cfg, next(model.parameters()).device)
+    out.load_state_dict(convert_variables(model.state_dict(), dfs))
+    return out
+
+
 @torch.no_grad()
-def eval_step(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor]):
+def eval_step(cfg: Config, model, batch: Dict[str, torch.Tensor]):
     """Inference forward: model outputs, point mask logits and overflow
     counters. The keys of the JAX ``eval_step`` except ``gt`` and the
-    bit-packed masks (``postprocess_scene`` thresholds the logits)."""
+    bit-packed masks (``postprocess_scene`` thresholds the logits).
+    ``model`` is a model or a :class:`TrainState`, in either tail form
+    (:func:`eval_model`; convert once with it before a loop)."""
+    model = eval_model(cfg, model)
     st, p2v, scales, _, aux = prepare_inputs(cfg, batch)
     out = model.eval()(st.feats, scales)
     result = finish(cfg, out, scales, p2v)
@@ -137,15 +165,16 @@ def eval_step(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor]):
 
 
 def train_cfg(cfg: Config) -> Config:
-    """The config the train step runs with. The JAX package swaps in
-    ``dense_from_scale_train`` here; the dense tail is not ported, so a
-    config that sets either boundary is refused."""
+    """The config the train step runs with: the per-mode tail boundary
+    ``backbone.dense_from_scale_train``, when set, replaces the eval form's
+    ``dense_from_scale``. Weights live in this train form; :func:`eval_model`
+    converts them to the eval form. Idempotent."""
     bb = cfg.model.backbone
-    if bb.dense_from_scale is not None or bb.dense_from_scale_train is not None:
-        raise NotImplementedError(
-            "dense_from_scale(_train): the dense tail is not ported yet — "
-            "ROADMAP §1 item 14")
-    return cfg
+    t = bb.dense_from_scale_train
+    if t is None or t == bb.dense_from_scale:
+        return cfg
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, backbone=dataclasses.replace(bb, dense_from_scale=t)))
 
 
 def pool_instance_labels(gt, scales, max_level: Optional[int] = None) -> List[torch.Tensor]:

@@ -131,6 +131,9 @@ def test_masked_batchnorm_train_normalisation():
 
 
 def test_unsupported_backbones_raise():
-    for kw in ({"dense_from_scale": 1}, {"downsample": "maxpool"}, {"dropout": 0.1}):
+    """Pooling and dropout are not ported yet; a dense tail needs its grid."""
+    for kw in ({"downsample": "maxpool"}, {"dropout": 0.1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SparseUNet(3, WIDTHS, **kw)
+    with pytest.raises(ValueError, match="grid_extent"):
+        SparseUNet(3, WIDTHS, dense_from_scale=1)

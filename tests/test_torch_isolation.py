@@ -21,13 +21,19 @@ for name in names:
     importlib.import_module(name)
 need = {pkg.__name__ + "." + m for m in (
     "train.__main__", "train.loop", "data.gt", "data.augment", "data.pipeline",
-    "models.targets", "models.losses")}
+    "models.targets", "models.losses", "models.convert", "models.unet", "models.layers",
+    "ops.hierarchy", "ops.rulebook")}
+from sparse_rcnn_tpu_torch.models.convert import convert_variables
+from sparse_rcnn_tpu_torch.models.unet import DenseTail, gather_from_grid, scatter_to_grid
+from sparse_rcnn_tpu_torch.models.layers import remat
+from sparse_rcnn_tpu_torch.ops.rulebook import downsample_sites
 assert need <= set(names), sorted(need - set(names))
 import chip_smoke
 import tests.test_torch_kernel_cuda
 import benchmarks.profile_torch_slice
 import benchmarks.compare_gather_gemm
 import benchmarks.probe_gather_gemm_stages
+import benchmarks.probe_wgrad_stages
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sparse_rcnn_tpu"))
 print(len(names), "modules")

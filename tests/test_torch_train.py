@@ -253,7 +253,18 @@ def test_train_stream_matches_jax_loader():
 
 
 def test_train_cfg_refuses_dense_tail():
-    cfg = load_config(overrides={"model": {"backbone": {
-        "widths": [8, 16, 24], "dense_from_scale": 1, "grid_extent": [64, 64, 32]}}})
+    """``train_cfg`` swaps in the train boundary, as JAX ``train_cfg`` does;
+    a backbone the port does not run yet (pooling) is still refused."""
+    bb = {"widths": [8, 16, 24], "dense_from_scale": 1, "grid_extent": [64, 64, 32]}
+    cfg = load_config(overrides={"model": {"backbone": bb}})
+    assert TL.train_cfg(cfg) is cfg
+    per_mode = {"model": {"backbone": {**bb, "dense_from_scale_train": 2}}}
+    for ov in (per_mode, {"model": {"backbone": {**bb, "dense_from_scale_train": 1}}}):
+        got, want = TL.train_cfg(load_config(overrides=ov)), JTL.train_cfg(
+            jax_load_config(overrides=ov))
+        assert got.model.backbone.dense_from_scale == want.model.backbone.dense_from_scale
+    assert TL.train_cfg(TL.train_cfg(load_config(overrides=per_mode))).model.backbone \
+        .dense_from_scale == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.train_cfg(cfg)
+        TL.build_model(load_config(overrides={"model": {"backbone": {
+            "widths": [8, 16], "downsample": "maxpool"}}}), "cpu")
