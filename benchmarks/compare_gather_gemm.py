@@ -36,9 +36,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as CS  # noqa: E402
-from sparse_rcnn_tpu_torch import infer  # noqa: E402
 from sparse_rcnn_tpu_torch.config import load_config  # noqa: E402
-from sparse_rcnn_tpu_torch.data.pipeline import TrainStream  # noqa: E402
+from sparse_rcnn_tpu_torch.data.pipeline import EvalBatches, TrainStream  # noqa: E402
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc  # noqa: E402
 from sparse_rcnn_tpu_torch.train import loop as TL  # noqa: E402
 
@@ -81,7 +80,7 @@ def main_path_calls(cfg) -> dict:
     """(feats, idx, W) of each forward conv, (g, t_idx, Wᵀ) of each dgrad
     and (feats, t_idx, g) of each wgrad."""
     model = TL.build_model(cfg, "cuda", torch.Generator().manual_seed(cfg.train.seed))
-    scene = next(iter(infer.scene_batches(cfg, "val", 1)))
+    scene = next(iter(EvalBatches(cfg, "val")))
     fwd = CS.capture(lambda: CS.run_scene(cfg, model, scene, "cuda"), "conv_forward")
     batch = TL.to_device(next(TrainStream(cfg, seed=cfg.train.seed)), "cuda", TL.TRAIN_KEYS)
     dgrad = []

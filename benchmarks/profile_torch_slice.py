@@ -34,6 +34,7 @@ import argparse
 import collections
 import contextlib
 import gzip
+import itertools
 import json
 import os
 import shutil
@@ -51,7 +52,7 @@ sys.path.insert(0, ROOT)
 
 from sparse_rcnn_tpu_torch import infer  # noqa: E402
 from sparse_rcnn_tpu_torch.config import load_config  # noqa: E402
-from sparse_rcnn_tpu_torch.data.pipeline import TrainStream  # noqa: E402
+from sparse_rcnn_tpu_torch.data.pipeline import EvalBatches, TrainStream  # noqa: E402
 from sparse_rcnn_tpu_torch.train import loop as TL  # noqa: E402
 
 EVAL_STAGES = ("hierarchy", "backbone", "heads")
@@ -202,7 +203,8 @@ def main(argv=None) -> int:
     cfg = load_config(args.config, infer.parse_overrides(args.overrides))
     gen = torch.Generator().manual_seed(cfg.train.seed)
     model = TL.eval_model(cfg, TL.build_model(TL.train_cfg(cfg), "cuda", gen))
-    val = [TL.to_device(b, "cuda") for b in infer.scene_batches(cfg, "val", args.scenes)]
+    n_batches = -(-args.scenes // cfg.data.batch_size)
+    val = [TL.to_device(b, "cuda") for b in itertools.islice(EvalBatches(cfg, "val"), n_batches)]
     ev = measure(lambda b: eval_step(cfg, model, b), val, EVAL_STAGES,
                  os.path.join(args.out_dir, "trace_eval.json"))
     state = TL.init_state(cfg, "cuda", torch.Generator().manual_seed(cfg.train.seed))

@@ -50,42 +50,68 @@ nonzero:
    site, one train step bit-identical run to run and with remat (peak
    memory of each), the wgrad partials buffer, and warm ms per scene of
    the eval step and per train step;
-9. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
-   under ``config1``), then as the last line ``{"ok": true, "device": {...}}``.
+9. evaluation over a split, checkpoints and the CLIs, config 1 at full
+   width on 3 val scenes: ``train.main`` for 4 steps with an eval and a
+   checkpoint every 2 (2 ``eval`` lines of 3 scenes, ``_best/best.json``;
+   per step 10 forward, 9 dgrad and 10 wgrad launches, plus 10 forward per
+   eval forward); the step-2 checkpoint ``torch.equal`` to the same 2 steps
+   run here, a save and restore too, and one step from it bit-equal to one
+   from memory; ``train.main --resume`` to 6 steps, ``eval.main --best
+   --per-scene`` and ``infer.main --best``; ``run_eval`` on the card equal
+   to the CPU's for the same weights and scenes (largest difference of any
+   mAP entry at most 1e-6), ``point_mask_bits`` equal to ``np.packbits``.
+   Then config 2 at full width, bf16: ``train.main`` for 2 steps with a
+   checkpoint every step and an eval at step 2, ``eval.main --best`` on 3
+   val scenes in batches of 2 (the last wrap-padded; 23 forward launches an
+   eval forward; the dense-3 train form scored as dense-2). Figures: the
+   warm eval split per scene of both configs, the bytes a config-2 batch
+   fetches against its f32 logits, the config-2 checkpoint's size and save
+   and restore ms, and the card's name and power limit, in an
+   ``eval_checkpoints`` JSON line;
+10. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
+   under ``config1``; launches of every path under ``launches_by_path``),
+   then as the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
 algorithms, so every f32 comparison holds f32 against f32. Detailed
-records go to ``--out-dir`` (by default ``chiprun_out/chip_smoke/``).
+records go to ``--out-dir`` (by default ``chiprun_out/chip_smoke/``), with
+config 1's checkpoints; config 2's go to a temporary ``_chip_smoke_*``
+directory in the checkout, removed at the end.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-import copy
-
 import sparse_rcnn_tpu_torch.train.__main__ as train_cli
 from benchmarks import profile_torch_slice as PROF
+from sparse_rcnn_tpu_torch import eval as eval_cli
 from sparse_rcnn_tpu_torch import infer
 from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.data import synthetic
 from sparse_rcnn_tpu_torch.data.augment import augment_scene
-from sparse_rcnn_tpu_torch.data.pipeline import TrainStream, collate
-from sparse_rcnn_tpu_torch.models.convert import convert_variables
+from sparse_rcnn_tpu_torch.data.pipeline import EvalBatches, TrainStream, collate
+from sparse_rcnn_tpu_torch.models.convert import convert_variables, tree_boundary
 from sparse_rcnn_tpu_torch.models.layers import SparseConv
 from sparse_rcnn_tpu_torch.models.transfer import from_flax, unflatten_variables
 from sparse_rcnn_tpu_torch.models.unet import scatter_to_grid
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
+from sparse_rcnn_tpu_torch.train import checkpoint as CK
 from sparse_rcnn_tpu_torch.train import loop as TL
+from sparse_rcnn_tpu_torch.train.evaluate import fetch_eval_outputs, run_eval
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -96,6 +122,15 @@ TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_config1_train.np
 CONFIG2 = os.path.join(ROOT, "configs", "config2_scannet_2cm.yaml")
 C2_SET = ["data.dataset=synthetic"]      # the only override of config 2
 C2_TRAIN_STEPS = 3
+# phase 9: the in-training eval, checkpoints and the eval CLI over 3 val
+# scenes (config 2's batch of 2 wrap-pads the last)
+EVAL_SCENES = 3
+C1_EVAL_SET = [f"data.val_scenes={EVAL_SCENES}", "train.eval_every=2",
+               "train.checkpoint_every=2", f"train.eval_scenes={EVAL_SCENES}",
+               "train.log_every=1"]
+C2_EVAL_SET = [f"data.val_scenes={EVAL_SCENES}", "train.eval_every=2",
+               "train.checkpoint_every=1", f"train.eval_scenes={EVAL_SCENES}",
+               "train.log_every=1"]
 # dense-2 against fully sparse in bf16, per scale, of the largest entry: the
 # two forms round to bf16 after different sums (dense convs against
 # gathered taps) through up to 16 blocks
@@ -485,7 +520,8 @@ def timed_split(cfg, model, batch, reps: int = 5) -> dict:
     return {k: statistics.median(v[1:]) for k, v in split.items()}
 
 
-def phase_slice(out_dir: str) -> tuple:
+def phase_slice(out_dir: str, no_ckpt: str) -> tuple:
+    """``no_ckpt``: a checkpoint directory that holds none (the seeded init)."""
     cfg = load_config(CONFIG1)
     n_scenes = 3
     log(f"[phase 4] {cfg.name} at full width (widths {list(cfg.model.backbone.widths)}, "
@@ -494,8 +530,9 @@ def phase_slice(out_dir: str) -> tuple:
 
     # the main path, through the entry point a user calls
     reset_counts()
-    infer.main(["--config", CONFIG1, "--num-scenes", str(n_scenes),
-                "--out-dir", os.path.join(out_dir, "infer"), "--device", DEVICE])
+    infer.main(["--config", CONFIG1, "--num-scenes", str(n_scenes), "--set",
+                f"train.checkpoint_dir={no_ckpt}", "--out-dir", os.path.join(out_dir, "infer"),
+                "--device", DEVICE])
     torch.cuda.synchronize()
     launches = sc.KERNEL.launches
     if counts()[1:] != (0, 0):
@@ -516,7 +553,7 @@ def phase_slice(out_dir: str) -> tuple:
     seed = cfg.train.seed
     m_gpu = TL.build_model(cfg, DEVICE, torch.Generator().manual_seed(seed))
     m_cpu = TL.build_model(cfg, "cpu", torch.Generator().manual_seed(seed))
-    batches = list(infer.scene_batches(cfg, "val", n_scenes))
+    batches = list(itertools.islice(EvalBatches(cfg, "val"), n_scenes))
     worst = {}
     for i, batch in enumerate(batches):
         before = sc.KERNEL.launches
@@ -788,6 +825,7 @@ def main_path_backward(cfg, model, batch) -> tuple:
 
 
 def phase_train(out_dir: str) -> dict:
+    """``train.main``'s checkpoints go to ``out_dir``/ckpt_train."""
     cfg = load_config(CONFIG1)
     log(f"[phase 6] {cfg.name} training at full width (widths "
         f"{list(cfg.model.backbone.widths)}, {cfg.data.num_points} points, capacities "
@@ -799,8 +837,11 @@ def phase_train(out_dir: str) -> dict:
 
     # the main path, through the entry point a user calls
     reset_counts()
+    ckpt = os.path.join(out_dir, "ckpt_train")
+    shutil.rmtree(ckpt, ignore_errors=True)
     train_cli.main(["--config", CONFIG1, "--set", f"train.total_steps={TRAIN_STEPS}",
-                    "--set", "train.log_every=1", "--device", DEVICE, "--log-file", log_path])
+                    "--set", "train.log_every=1", "--set", f"train.checkpoint_dir={ckpt}",
+                    "--device", DEVICE, "--log-file", log_path])
     torch.cuda.synchronize()
     launches = counts()
     want = tuple(TRAIN_STEPS * n for n in PER_STEP)
@@ -1045,7 +1086,8 @@ def timed_steps(fn, items, reps: int) -> dict:
             "n": len(times)}
 
 
-def phase_config2(out_dir: str) -> dict:
+def phase_config2(out_dir: str, tmp_dir: str) -> dict:
+    """``tmp_dir``: where ``train.main`` saves its checkpoint (140 MB)."""
     cfg = load_config(CONFIG2, infer.parse_overrides(C2_SET))
     tcfg = TL.train_cfg(cfg)
     bb = cfg.model.backbone
@@ -1062,7 +1104,9 @@ def phase_config2(out_dir: str) -> dict:
 
     # the main paths, through the entry points a user calls
     reset_counts()
-    infer.main(["--config", CONFIG2, *sets, "--num-scenes", str(cfg.data.batch_size),
+    infer.main(["--config", CONFIG2, *sets, "--set",
+                f"train.checkpoint_dir={os.path.join(tmp_dir, 'none')}",
+                "--num-scenes", str(cfg.data.batch_size),
                 "--out-dir", os.path.join(out_dir, "infer_config2"), "--device", DEVICE])
     torch.cuda.synchronize()
     rep["launches_infer"] = counts()
@@ -1076,6 +1120,7 @@ def phase_config2(out_dir: str) -> dict:
     reset_counts()
     state = train_cli.main(["--config", CONFIG2, *sets, "--set",
                             f"train.total_steps={C2_TRAIN_STEPS}", "--set", "train.log_every=1",
+                            "--set", f"train.checkpoint_dir={os.path.join(tmp_dir, 'phase8')}",
                             "--device", DEVICE, "--log-file", log_path])
     torch.cuda.synchronize()
     rep["launches_train"] = counts()
@@ -1208,6 +1253,235 @@ def phase_config2(out_dir: str) -> dict:
     return rep
 
 
+# --------------------------------------------------------------------------
+# phase 9: evaluation over a split, checkpoints, and the CLIs on the card
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a train state, by name."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    for name in ("mu", "nu", "acc_grads"):
+        out.update({f"{name}.{i}": t for i, t in enumerate(getattr(state.opt_state, name) or [])})
+    out.update({f"ema.{i}": t for i, t in enumerate(state.ema_params or [])})
+    return out
+
+
+def require_equal_states(a, b, what: str) -> int:
+    """``torch.equal`` on every tensor of two train states, and equal counts;
+    returns the number of tensors compared."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    counts_a = (a.step, a.opt_state.count, a.opt_state.mini_step)
+    counts_b = (b.step, b.opt_state.count, b.opt_state.mini_step)
+    differ = sorted(k for k in ta if not torch.equal(ta[k], tb[k]))
+    if sorted(ta) != sorted(tb) or differ or counts_a != counts_b:
+        raise AssertionError(f"{what}: tensors differing {differ[:8]}, counts {counts_a} "
+                             f"vs {counts_b}")
+    return len(ta)
+
+
+def jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def per_scene_split(res: dict) -> dict:
+    return {k[len("eval_"):]: res[k] / res["scenes"] for k in
+            ("eval_wall_s", "eval_dev_s", "eval_fetch_s", "eval_host_s")}
+
+
+def run_cli(fn, argv, what: str):
+    """``fn(argv)`` with the launch counts set to 0 just before it; returns
+    (its result, the counts just after)."""
+    reset_counts()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    got = counts()
+    log(f"  {what}: launches (forward, dgrad, wgrad) {got}")
+    return out, got
+
+
+def expect(got, want, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: {got}, expected {want}")
+
+
+def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
+    """``tmp_dir`` takes the config-2 checkpoints (140 MB each); ``c2_convs``:
+    config 2's sparse convs in the eval and the train form (phase 8)."""
+    cfg = load_config(CONFIG1, infer.parse_overrides(C1_EVAL_SET))
+    n = EVAL_SCENES
+    log(f"[phase 9] evaluation over a split, checkpoints and the CLIs: {cfg.name}, "
+        f"{n} val scenes, eval and checkpoint every 2 steps")
+    ck1 = os.path.join(out_dir, "ckpt_config1")
+    for d in (ck1, ck1 + "_best"):
+        shutil.rmtree(d, ignore_errors=True)
+    sets = sum((["--set", x] for x in C1_EVAL_SET + [f"train.checkpoint_dir={ck1}"]), [])
+    log_path = os.path.join(out_dir, "train_eval_log.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    rep = {"launches": {}}
+
+    # a. train.main, 4 steps, an eval and a checkpoint every 2
+    _, got = run_cli(train_cli.main, ["--config", CONFIG1, *sets, "--set",
+                                      "train.total_steps=4", "--device", DEVICE,
+                                      "--log-file", log_path], "config1 train.main, 4 steps")
+    evals_fwd = 2 * n // cfg.data.batch_size        # 2 evals of 3 scenes, batch 1
+    expect(got, (4 * PER_STEP[0] + PER_STEP[0] * evals_fwd, 4 * PER_STEP[1], 4 * PER_STEP[2]),
+           "config1 train.main launches")
+    rep["launches"]["config1 train.main (4 steps, 2 evals)"] = got
+    lines = jsonl(log_path)
+    evals = [r for r in lines if r["kind"] == "eval"]
+    if [(r["step"], r["scenes"]) for r in evals] != [(2, n), (4, n)]:
+        raise AssertionError(f"config1 train.main evals: {evals}")
+    if not os.path.isfile(os.path.join(CK.best_dir(ck1), "best.json")):
+        raise AssertionError("config1 train.main wrote no best.json")
+    if CK.make_manager(ck1).all_steps() != [2, 4]:
+        raise AssertionError(f"config1 checkpoints {CK.make_manager(ck1).all_steps()}")
+    log("  evals: " + json.dumps([{k: r[k] for k in ("step", "scenes", "mAP@0.25", "mAP@0.5")}
+                                  for r in evals]))
+
+    # b. the step-2 checkpoint against the same 2 steps in this process (the
+    # schedule reads total_steps); then one step from each, bit for bit
+    seed = cfg.train.seed
+    cfg = load_config(CONFIG1, infer.parse_overrides(C1_EVAL_SET + ["train.total_steps=4"]))
+    mem = TL.init_state(cfg, DEVICE, torch.Generator().manual_seed(seed))
+    stream = TrainStream(cfg, seed=seed)
+    for _ in range(2):
+        TL.train_step(cfg, mem, TL.to_device(next(stream), DEVICE, TL.TRAIN_KEYS))
+    restored = CK.restore(CK.make_manager(ck1), TL.init_state(
+        cfg, DEVICE, torch.Generator().manual_seed(seed + 1)), step=2)
+    n_t = require_equal_states(restored, mem, "train.main's step-2 checkpoint vs 2 steps here")
+    rt_mgr = CK.make_manager(os.path.join(tmp_dir, "roundtrip"))
+    CK.save(rt_mgr, mem)
+    require_equal_states(CK.restore(rt_mgr, TL.init_state(
+        cfg, DEVICE, torch.Generator().manual_seed(seed + 1))), mem, "save and restore")
+    batch = TL.to_device(next(stream), DEVICE, TL.TRAIN_KEYS)
+    _, m_mem = TL.train_step(cfg, mem, batch)
+    _, m_res = TL.train_step(cfg, restored, batch)
+    require_equal_states(restored, mem, "one step from the restored state vs from memory")
+    if {k: float(v) for k, v in m_mem.items()} != {k: float(v) for k, v in m_res.items()}:
+        raise AssertionError(f"step metrics differ: {m_mem} vs {m_res}")
+    log(f"  the step-2 checkpoint equals 2 steps in this process ({n_t} tensors, "
+        "torch.equal), a save and restore too, and one step from it equals one from "
+        "memory bit for bit (parameters, moments, BN statistics, loss parts)")
+    del mem, restored
+
+    # c. resume to 6, then eval --best --per-scene and infer --best
+    _, got = run_cli(train_cli.main, ["--config", CONFIG1, *sets, "--set",
+                                      "train.total_steps=6", "--device", DEVICE, "--resume",
+                                      "--log-file", log_path], "config1 train.main --resume")
+    expect(got, (2 * PER_STEP[0] + PER_STEP[0] * n, 2 * PER_STEP[1], 2 * PER_STEP[2]),
+           "config1 train.main --resume launches")
+    rep["launches"]["config1 train.main --resume (2 steps, 1 eval)"] = got
+    lines = jsonl(log_path)
+    resumed = [r["step"] for r in lines if r["kind"] == "resume"]
+    after = [r["step"] for r in lines if r["kind"] == "train"][-2:]
+    if resumed != [4] or after != [5, 6]:
+        raise AssertionError(f"resume: {resumed}, steps after it {after}")
+    res1, got = run_cli(eval_cli.main, ["--config", CONFIG1, *sets, "--best", "--per-scene",
+                                        "--device", DEVICE], "config1 eval.main --best")
+    expect(got, (PER_STEP[0] * n, 0, 0), "config1 eval.main launches")
+    rep["launches"]["config1 eval.main --best (3 scenes)"] = got
+    if res1["scenes"] != n or len(res1["per_scene_mAP@0.5"]) != n:
+        raise AssertionError(f"config1 eval.main: {res1}")
+    inf_dir = os.path.join(out_dir, "infer_best")
+    _, got = run_cli(infer.main, ["--config", CONFIG1, *sets, "--best", "--num-scenes", str(n),
+                                  "--out-dir", inf_dir, "--device", DEVICE],
+                     "config1 infer.main --best")
+    expect(got, (PER_STEP[0] * n, 0, 0), "config1 infer.main launches")
+    rep["launches"]["config1 infer.main --best (3 scenes)"] = got
+    for i in range(n):
+        with np.load(os.path.join(inf_dir, f"scene{i:04d}.npz")) as f:
+            if f["instance"].shape != (f["points"].shape[0],) or not np.isfinite(f["scores"]).all():
+                raise AssertionError(f"infer --best scene{i:04d}.npz malformed")
+
+    # d. run_eval on the card against the CPU, the same weights and scenes
+    best = CK.make_manager(CK.best_dir(ck1))
+    res, states = {}, {}
+    for dev in (DEVICE, "cpu"):
+        states[dev] = CK.restore(best, TL.init_state(cfg, dev,
+                                                     torch.Generator().manual_seed(seed)))
+        res[dev] = run_eval(cfg, states[dev], EvalBatches(cfg, "val"), per_class=True,
+                            per_scene=True)
+    keys = [k for k in res["cpu"] if k.startswith(("mAP", "AP@", "scene_map50", "semantic"))]
+    if sorted(res[DEVICE]) != sorted(res["cpu"]) or res[DEVICE]["scenes"] != n:
+        raise AssertionError(f"run_eval keys or scenes differ: {res}")
+    diff = max(abs(res[DEVICE][k] - res["cpu"][k]) for k in keys)
+    log(f"  run_eval card vs CPU, {len(keys)} entries: largest |difference| {diff!r} "
+        f"(bar 1e-6); per-scene mAP@0.5 {res[DEVICE]['per_scene_mAP@0.5']} vs "
+        f"{res['cpu']['per_scene_mAP@0.5']}")
+    if diff > 1e-6 or res[DEVICE]["per_scene_mAP@0.5"] != res["cpu"]["per_scene_mAP@0.5"]:
+        raise AssertionError("run_eval on the card differs from the CPU")
+    rep["card_vs_cpu_max_abs_diff"] = diff
+    raw = TL.eval_step(cfg, states[DEVICE], TL.to_device(next(iter(EvalBatches(cfg, "val"))), DEVICE))
+    want = np.packbits(raw["point_mask_logits"].cpu().numpy() > 0, axis=-1)
+    if not np.array_equal(raw["point_mask_bits"].cpu().numpy(), want):
+        raise AssertionError("point_mask_bits on the card differ from np.packbits")
+    log("  point_mask_bits on the card equal np.packbits(point_mask_logits > 0) exactly")
+    rep["config1_eval"] = res1
+    del raw, states
+
+    # e. config 2 at full width, bf16: train.main 2 steps, then eval.main --best
+    cfg2 = load_config(CONFIG2, infer.parse_overrides(C2_SET + C2_EVAL_SET))
+    ck2 = os.path.join(tmp_dir, "ckpt_config2")
+    sets2 = sum((["--set", x] for x in C2_SET + C2_EVAL_SET + [f"train.checkpoint_dir={ck2}"]),
+                [])
+    n_eval, n_train = c2_convs
+    state, got = run_cli(train_cli.main, ["--config", CONFIG2, *sets2, "--set",
+                                          "train.total_steps=2", "--device", DEVICE],
+                         "config2 train.main, 2 steps")
+    evals_fwd = -(-n // cfg2.data.batch_size)
+    expect(got, (2 * n_train + evals_fwd * n_eval, 2 * (n_train - 1), 2 * n_train),
+           "config2 train.main launches")
+    rep["launches"]["config2 train.main (2 steps, 1 eval)"] = got
+    res2, got = run_cli(eval_cli.main, ["--config", CONFIG2, *sets2, "--best",
+                                        "--device", DEVICE], "config2 eval.main --best")
+    expect(got, (evals_fwd * n_eval, 0, 0), "config2 eval.main launches")
+    rep["launches"]["config2 eval.main --best (3 scenes)"] = got
+    if res2["scenes"] != n:
+        raise AssertionError(f"config2 eval.main scored {res2['scenes']} scenes, not {n}")
+    bb = cfg2.model.backbone
+    ev = TL.eval_model(cfg2, state)
+    forms = (state.model.backbone.dense_from_scale, ev.backbone.dense_from_scale,
+             tree_boundary({k[len("backbone."):]: v for k, v in
+                            CK.make_manager(ck2).load(2)["model"].items()
+                            if k.startswith("backbone.")}))
+    if forms != (bb.dense_from_scale_train, bb.dense_from_scale, bb.dense_from_scale_train):
+        raise AssertionError(f"config 2 forms (train, eval, checkpoint): {forms}")
+    log(f"  config 2: the train form (dense-{forms[0]}, also in the checkpoint) is scored "
+        f"in the eval form (dense-{forms[1]}), {n_eval} forward launches an eval forward")
+
+    # f. figures: bytes a config-2 batch fetches, checkpoint size and times
+    out = TL.eval_step(cfg2, ev, TL.to_device(next(iter(EvalBatches(cfg2, "val"))), DEVICE))
+    host = fetch_eval_outputs(out)
+    fetch = {"logits_bytes": out["point_mask_logits"].numel() * 4,
+             "bits_bytes": out["point_mask_bits"].numel(),
+             "fetched_bytes": sum(v.nbytes for v in host.values() if hasattr(v, "nbytes"))}
+    del out, host, ev
+    mgr = CK.make_manager(os.path.join(tmp_dir, "timing"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CK.save(mgr, state)
+    t1 = time.perf_counter()
+    CK.restore(mgr, state)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ckpt = {"bytes": os.path.getsize(os.path.join(mgr.path(state.step), "state.pt")),
+            "save_ms": (t1 - t0) * 1e3, "restore_ms": (t2 - t1) * 1e3}
+    rep.update(config2_eval=res2, config2_fetch=fetch, config2_checkpoint=ckpt,
+               eval_split_per_scene={"config1": per_scene_split(res1),
+                                     "config2": per_scene_split(res2)}, card=smi)
+    log("  warm eval split per scene, s (eval.main --best, 3 scenes): "
+        + json.dumps(rep["eval_split_per_scene"]))
+    log(f"  config-2 batch fetched to the host: {fetch['fetched_bytes']} bytes, of which the "
+        f"mask bits {fetch['bits_bytes']}; the f32 logits left on the card "
+        f"{fetch['logits_bytes']}")
+    log(f"  config-2 checkpoint: {ckpt['bytes']} bytes, save {ckpt['save_ms']:.1f} ms, "
+        f"restore {ckpt['restore_ms']:.1f} ms")
+    log(f"  {smi}")
+    return rep
+
+
 def totals(main_path) -> dict:
     """Sums over one step's main-path records: kernel, plain, library and
     bound ms, and what bounds the step (its bytes over the card's memory rate
@@ -1243,10 +1517,16 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = card_info()
     os.makedirs(args.out_dir, exist_ok=True)
+    # checkpoints too large for the out-dir, removed at the end
+    with tempfile.TemporaryDirectory(prefix="_chip_smoke_", dir=ROOT) as tmp_dir:
+        return run(args, smi, t_start, tmp_dir)
+
+
+def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     build()
     recs = phase_kernel()
     bwd_recs = phase_backward_kernels()
-    launches, split, main_path = phase_slice(args.out_dir)
+    launches, split, main_path = phase_slice(args.out_dir, os.path.join(tmp_dir, "none"))
     dead = next(r for r in recs if (r["conv"], r["dtype"]) == ("all_dead", "float32"))
     enc = next(r for r in main_path if r["conv"] == "enc0.conv1")
     dead_vs_main = {"all_dead_ms": dead["kernel_ms"], "enc0.conv1_ms": enc["kernel_ms"],
@@ -1257,7 +1537,9 @@ def main(argv=None) -> int:
     golden_flips = phase_golden()
     train = phase_train(args.out_dir)
     golden_train = phase_golden_train()
-    c2 = phase_config2(args.out_dir)
+    c2 = phase_config2(args.out_dir, tmp_dir)
+    p9 = phase_eval_checkpoints(args.out_dir, tmp_dir, smi,
+                                (c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"]))
 
     src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
     records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
@@ -1265,7 +1547,8 @@ def main(argv=None) -> int:
     paths = {"config1 infer.main (3 scenes)": (launches, 0, 0),
              f"config1 train.main ({TRAIN_STEPS} steps)": train["launches"],
              "config2 infer.main (1 batch)": c2["launches_infer"],
-             f"config2 train.main ({C2_TRAIN_STEPS} steps)": c2["launches_train"]}
+             f"config2 train.main ({C2_TRAIN_STEPS} steps)": c2["launches_train"],
+             **p9["launches"]}
     n_eval, n_train = c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"]
     kernels = {"kernels": [
         dict(kernel_entry(
@@ -1297,10 +1580,14 @@ def main(argv=None) -> int:
               "dead_tile_vs_main_path": dead_vs_main,
               "backward_random": bwd_recs, "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
-              "train": train, "golden_train": golden_train, "config2": c2}
+              "train": train, "golden_train": golden_train, "config2": c2,
+              "eval_checkpoints": p9}
     with open(os.path.join(args.out_dir, "kernels.json"), "w") as f:
         json.dump(record, f, indent=1)
-    log(f"[phase 9] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[phase 10] done in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"eval_checkpoints": {k: p9[k] for k in (
+        "card", "eval_split_per_scene", "config2_fetch", "config2_checkpoint",
+        "card_vs_cpu_max_abs_diff")}}))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,15 @@
     python -m sparse_rcnn_tpu_torch.infer --config configs/config1_tiny_5cm.yaml --num-scenes 3
     python -m sparse_rcnn_tpu_torch.infer --config configs/config2_scannet_2cm.yaml \
         --set data.dataset=synthetic
+    python -m sparse_rcnn_tpu_torch.infer --config configs/config1_tiny_5cm.yaml --best
 
-Runs on CUDA unless ``--device cpu``. The weights are the port's own seeded
-init (``train.seed``) of the train form, converted to the eval form where
-the two tail boundaries differ: restoring a checkpoint comes with ROADMAP §1
-item 10.
+Runs on CUDA unless ``--device cpu``. The weights are the latest checkpoint
+of ``train.checkpoint_dir`` (``--step N`` for another, ``--best`` for the
+best-mAP weights training retains in ``<checkpoint_dir>_best``), else the
+port's own seeded init (``train.seed``). With ``train.ema > 0`` the EMA
+weights are run. They are stored in the train form and converted to the
+eval form where the two tail boundaries differ. Masks come to the host as
+the eval step's packed bits, never as the f32 logits.
 """
 
 from __future__ import annotations
@@ -16,15 +20,16 @@ from __future__ import annotations
 import argparse
 import ast
 import os
-from typing import Dict, Iterator
+from typing import Dict
 
 import numpy as np
 import torch
 
-from .config import Config, load_config
-from .data.datasets import build_dataset
+from .config import load_config
+from .data.pipeline import EvalBatches
+from .train import checkpoint as CK
 from .train import loop as TL
-from .train.evaluate import postprocess_scene
+from .train.evaluate import fetch_eval_outputs, postprocess_scene
 
 
 def parse_overrides(pairs):
@@ -44,19 +49,27 @@ def parse_overrides(pairs):
     return out
 
 
-def scene_batches(cfg: Config, split: str, num_scenes: int) -> Iterator[Dict[str, np.ndarray]]:
-    """Batches of ``cfg.data.batch_size`` scenes of ``split`` in order, the
-    last one wrap-padded from the split's start (as the eval loader does)."""
-    ds = build_dataset(cfg, split)
-    n = min(num_scenes, len(ds))
-    bs = cfg.data.batch_size
-    for start in range(0, n, bs):
-        scenes = [ds[(start + i) % len(ds)] for i in range(bs)]
-        yield {k: np.stack([s[k] for s in scenes]) for k in scenes[0]}
+def setup_device(name: str, deterministic: bool = False) -> torch.device:
+    """The device of an entry point. ``cuda`` needs a card (exits nonzero
+    without one) and turns TF32 off, so that an f32 config computes in f32;
+    ``deterministic`` also makes cuDNN pick deterministic algorithms."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"--device {name}: no CUDA device (pass --device cpu)")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if deterministic:
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
+    return device
 
 
 def to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+    """Every tensor of an eval-step result on the host (the f32 logits too;
+    ``fetch_eval_outputs`` leaves them on the device)."""
+    return {k: v.detach().cpu().numpy() for k, v in out.items()
+            if isinstance(v, torch.Tensor)}
 
 
 def scene_result(out: Dict[str, np.ndarray], b: int, num_classes: int):
@@ -92,26 +105,33 @@ def main(argv=None):
     ap.add_argument("--num-scenes", type=int, default=1)
     ap.add_argument("--out-dir", default="inference_out")
     ap.add_argument("--ply", action="store_true")
+    ap.add_argument("--step", type=int, default=None,
+                    help="checkpoint step to restore (default: latest)")
+    ap.add_argument("--best", action="store_true",
+                    help="restore from <checkpoint_dir>_best")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device cuda: no CUDA device (pass --device cpu)")
-        # an f32 config computes in f32: no TF32 in cuDNN's convs or matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    device = setup_device(args.device)
     cfg = load_config(args.config, parse_overrides(args.overrides))
     os.makedirs(args.out_dir, exist_ok=True)
-    # the seeded init of the train form, in the eval form
-    model = TL.eval_model(cfg, TL.build_model(
-        TL.train_cfg(cfg), device, torch.Generator().manual_seed(cfg.train.seed)))
+    state = TL.init_state(cfg, device, torch.Generator().manual_seed(cfg.train.seed))
+    ckpt_dir = (CK.best_dir(cfg.train.checkpoint_dir) if args.best
+                else cfg.train.checkpoint_dir)
+    if CK.restore(CK.make_manager(ckpt_dir, cfg.train.keep_checkpoints), state,
+                  step=args.step) is not None:
+        print(f"restored step {state.step} from {os.path.abspath(ckpt_dir)}")
+    else:
+        print(f"no checkpoint in {os.path.abspath(ckpt_dir)}: seeded init "
+              f"train.seed={cfg.train.seed}")
+    model = TL.eval_model(cfg, state)
 
     palette = np.random.default_rng(0).integers(40, 255, (256, 3))
     done = 0
-    for batch in scene_batches(cfg, args.split, args.num_scenes):
-        out = to_host(TL.eval_step(cfg, model, TL.to_device(batch, device)))
+    for batch in EvalBatches(cfg, args.split):
+        if done >= args.num_scenes:
+            break
+        out = fetch_eval_outputs(TL.eval_step(cfg, model, TL.to_device(batch, device)))
         for b in range(cfg.data.batch_size):
             if done >= args.num_scenes:
                 break

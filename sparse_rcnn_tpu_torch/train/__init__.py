@@ -1,1 +1,2 @@
-"""Eval step and post-processing of the port; training comes with a later slice."""
+"""Training and evaluation of the port: the train and eval steps, evaluation
+over a split, checkpoints and the training CLI."""

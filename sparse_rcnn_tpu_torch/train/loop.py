@@ -131,31 +131,67 @@ def finish(cfg: Config, out: Dict[str, torch.Tensor], scales, p2v) -> Dict[str, 
 
 def eval_model(cfg: Config, source) -> SparseRCNN:
     """The model that :func:`eval_step` runs: ``source`` (a model or a
-    :class:`TrainState`) in the eval form. Weights live in the train form
-    (the tail boundary ``dense_from_scale_train``); when the eval boundary
-    ``dense_from_scale`` differs, a model of the eval form gets them
-    converted, exactly (:mod:`..models.convert`). A model already in the
-    eval form comes back as it is."""
-    model = source.model if isinstance(source, TrainState) else source
+    :class:`TrainState`) in the eval form.
+
+    A :class:`TrainState` with ``train.ema > 0`` is scored on its EMA
+    parameters, with the model's own BN running statistics, as the JAX
+    ``eval_step`` scores ``state.ema_params``: the result is then always a
+    separate model, and ``state.model`` is never written. Pass
+    ``state.model`` itself to score the raw weights (JAX aliases
+    ``ema_params=params`` for that).
+
+    Weights live in the train form (the tail boundary
+    ``dense_from_scale_train``); when the eval boundary ``dense_from_scale``
+    differs, a model of the eval form gets them converted, exactly
+    (:mod:`..models.convert`). A model already in the eval form, and with
+    no EMA to apply, comes back as it is."""
+    ema = None
+    if isinstance(source, TrainState):
+        if cfg.train.ema > 0:
+            ema = source.ema_params
+        model = source.model
+    else:
+        model = source
     dfs = cfg.model.backbone.dense_from_scale
-    if model.backbone.dense_from_scale == dfs:
+    if ema is None and model.backbone.dense_from_scale == dfs:
         return model
+    state = model.state_dict()
+    if ema is not None:
+        names = [n for n, _ in model.named_parameters()]
+        state.update(zip(names, ema))
     out = build_model(cfg, next(model.parameters()).device)
-    out.load_state_dict(convert_variables(model.state_dict(), dfs))
+    out.load_state_dict(convert_variables(state, dfs))
     return out
+
+
+def packbits(mask: torch.Tensor) -> torch.Tensor:
+    """``np.packbits(mask, axis=-1)`` on the tensor's device: bool [..., N] →
+    uint8 [..., ceil(N / 8)], the first of each 8 in the most significant
+    bit, N padded with False."""
+    n = mask.shape[-1]
+    mask = torch.nn.functional.pad(mask, (0, -n % 8))
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                           device=mask.device)
+    return (mask.reshape(*mask.shape[:-1], -1, 8).to(torch.uint8) * weights).sum(
+        -1, dtype=torch.uint8)
 
 
 @torch.no_grad()
 def eval_step(cfg: Config, model, batch: Dict[str, torch.Tensor]):
-    """Inference forward: model outputs, point mask logits and overflow
-    counters. The keys of the JAX ``eval_step`` except ``gt`` and the
-    bit-packed masks (``postprocess_scene`` thresholds the logits).
-    ``model`` is a model or a :class:`TrainState`, in either tail form
-    (:func:`eval_model`; convert once with it before a loop)."""
+    """Inference forward: the keys of the JAX ``eval_step``. Model outputs,
+    the point mask logits [B, P, N], ``point_mask_bits`` (the logits > 0,
+    that is sigmoid > 0.5, bit-packed on the device as ``np.packbits``
+    does, so an evaluator fetches N / 8 bytes a proposal instead of 4 N),
+    ``gt`` (a :class:`~..models.targets.SceneGT` when the batch carries the
+    point labels, else None) and the overflow counters. ``model`` is a
+    model or a :class:`TrainState`, in either tail form (:func:`eval_model`;
+    convert once with it before a loop)."""
     model = eval_model(cfg, model)
-    st, p2v, scales, _, aux = prepare_inputs(cfg, batch)
+    st, p2v, scales, gt, aux = prepare_inputs(cfg, batch)
     out = model.eval()(st.feats, scales)
     result = finish(cfg, out, scales, p2v)
+    result["point_mask_bits"] = packbits(result["point_mask_logits"] > 0)
+    result["gt"] = gt
     result.update(aux)
     return result
 

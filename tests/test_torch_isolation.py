@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``sparse_rcnn_tpu_torch``,
 ``chip_smoke.py``, the on-card test file and the port's benchmark scripts loads
-neither jax nor anything of ``sparse_rcnn_tpu`` (checked in a fresh interpreter),
+neither jax, orbax nor anything of ``sparse_rcnn_tpu`` (checked in a fresh
+interpreter),
 and ``chip_smoke.py`` refuses to run without a CUDA card or without the rest of
 the repo, printing no result."""
 
@@ -22,7 +23,8 @@ for name in names:
 need = {pkg.__name__ + "." + m for m in (
     "train.__main__", "train.loop", "data.gt", "data.augment", "data.pipeline",
     "models.targets", "models.losses", "models.convert", "models.unet", "models.layers",
-    "ops.hierarchy", "ops.rulebook")}
+    "ops.hierarchy", "ops.rulebook", "eval", "utils.metrics", "utils.logging",
+    "train.checkpoint", "train.evaluate")}
 from sparse_rcnn_tpu_torch.models.convert import convert_variables
 from sparse_rcnn_tpu_torch.models.unet import DenseTail, gather_from_grid, scatter_to_grid
 from sparse_rcnn_tpu_torch.models.layers import remat
@@ -35,7 +37,8 @@ import benchmarks.compare_gather_gemm
 import benchmarks.probe_gather_gemm_stages
 import benchmarks.probe_wgrad_stages
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sparse_rcnn_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "sparse_rcnn_tpu"))
 print(len(names), "modules")
 assert not bad, bad
 """
