@@ -37,7 +37,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as CS  # noqa: E402
 from sparse_rcnn_tpu_torch.config import load_config  # noqa: E402
-from sparse_rcnn_tpu_torch.data.pipeline import EvalBatches, TrainStream  # noqa: E402
+from sparse_rcnn_tpu_torch.data.pipeline import Loader  # noqa: E402
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc  # noqa: E402
 from sparse_rcnn_tpu_torch.train import loop as TL  # noqa: E402
 
@@ -80,9 +80,9 @@ def main_path_calls(cfg) -> dict:
     """(feats, idx, W) of each forward conv, (g, t_idx, Wᵀ) of each dgrad
     and (feats, t_idx, g) of each wgrad."""
     model = TL.build_model(cfg, "cuda", torch.Generator().manual_seed(cfg.train.seed))
-    scene = next(iter(EvalBatches(cfg, "val")))
+    scene = next(Loader(cfg, "val", train=False, threads=False))
     fwd = CS.capture(lambda: CS.run_scene(cfg, model, scene, "cuda"), "conv_forward")
-    batch = TL.to_device(next(TrainStream(cfg, seed=cfg.train.seed)), "cuda", TL.TRAIN_KEYS)
+    batch = TL.to_device(next(Loader(cfg, seed=cfg.train.seed, threads=False)), "cuda", TL.TRAIN_KEYS)
     dgrad = []
     wgrad = CS.capture(lambda: dgrad.extend(CS.capture(
         lambda: TL.loss_and_grads(cfg, model, batch), "conv_dgrad")), "conv_wgrad")

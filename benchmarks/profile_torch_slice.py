@@ -52,7 +52,7 @@ sys.path.insert(0, ROOT)
 
 from sparse_rcnn_tpu_torch import infer  # noqa: E402
 from sparse_rcnn_tpu_torch.config import load_config  # noqa: E402
-from sparse_rcnn_tpu_torch.data.pipeline import EvalBatches, TrainStream  # noqa: E402
+from sparse_rcnn_tpu_torch.data.pipeline import Loader  # noqa: E402
 from sparse_rcnn_tpu_torch.train import loop as TL  # noqa: E402
 
 EVAL_STAGES = ("hierarchy", "backbone", "heads")
@@ -204,11 +204,11 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(cfg.train.seed)
     model = TL.eval_model(cfg, TL.build_model(TL.train_cfg(cfg), "cuda", gen))
     n_batches = -(-args.scenes // cfg.data.batch_size)
-    val = [TL.to_device(b, "cuda") for b in itertools.islice(EvalBatches(cfg, "val"), n_batches)]
+    val = [TL.to_device(b, "cuda") for b in itertools.islice(Loader(cfg, "val", train=False, threads=False), n_batches)]
     ev = measure(lambda b: eval_step(cfg, model, b), val, EVAL_STAGES,
                  os.path.join(args.out_dir, "trace_eval.json"))
     state = TL.init_state(cfg, "cuda", torch.Generator().manual_seed(cfg.train.seed))
-    stream = TrainStream(cfg, seed=cfg.train.seed)
+    stream = Loader(cfg, seed=cfg.train.seed, threads=False)
     train = [TL.to_device(next(stream), "cuda", TL.TRAIN_KEYS) for _ in range(args.scenes)]
     tr = measure(lambda b: train_step(cfg, state, b), train, TRAIN_STAGES,
                  os.path.join(args.out_dir, "trace_train.json"))

@@ -68,15 +68,38 @@ nonzero:
    fetches against its f32 logits, the config-2 checkpoint's size and save
    and restore ms, and the card's name and power limit, in an
    ``eval_checkpoints`` JSON line;
-10. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
-   under ``config1``; launches of every path under ``launches_by_path``),
-   then as the last line ``{"ok": true, "device": {...}}``.
+10. the data layer and the pooled backbone at full width: each reader's
+   files written into the temporary directory from the port's generator
+   (ScanNet ``.npz`` and ``.pth`` scenes of 300000 points, 4 train and 3
+   val; S3DIS ``Area_1_*``/``Area_5_*`` rooms of 600000; SemanticKITTI
+   ``.bin``/``.label`` sweeps of 120000 in sequences 00 and 08, 100 x 100 x
+   6 m); config 2 through the ScanNet reader with ``data.num_workers=4``,
+   ``data.prefetch=3`` and ``data.host_voxelize=true``: ``train.main`` for 3
+   steps (an eval at step 3), ``eval.main --best`` on the 3 val scenes, the
+   host voxelizer's tables of a val batch against the device's voxelize on
+   the card (integer tables bit for bit, feats within 1e-5), one f32 train
+   step on host- against device-voxelized tables, and the train step fed by
+   the Loader against the synchronous single-worker stream and against
+   batches already on the card, in turns (wall, device busy, idle share,
+   the Loader's wait per batch); configs 3 and 4
+   through the S3DIS and KITTI readers: ``infer.main`` on one batch,
+   ``train.main`` for 2 steps, warm eval and train step ms and peak memory;
+   ``configs/config1_pool_dropout.yaml``: ``infer.main`` on 3 scenes,
+   ``train.main`` for 4 steps twice (bit-equal states and losses), the eval
+   step card against CPU as in phase 4, every kernel call of one pooled
+   forward and train step against its plain version. Launches of every
+   path are checked; figures in a ``data_layer`` JSON line with the card;
+11. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
+   under ``config1``, config1_pool_dropout's under ``pool_dropout``;
+   launches of every path under ``launches_by_path``), then as the last
+   line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
 algorithms, so every f32 comparison holds f32 against f32. Detailed
 records go to ``--out-dir`` (by default ``chiprun_out/chip_smoke/``), with
-config 1's checkpoints; config 2's go to a temporary ``_chip_smoke_*``
-directory in the checkout, removed at the end.
+config 1's checkpoints; config 2's and 3's checkpoints and phase 10's
+datasets go to a temporary ``_chip_smoke_*`` directory in the checkout,
+removed at the end.
 """
 
 from __future__ import annotations
@@ -95,6 +118,8 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 import sparse_rcnn_tpu_torch.train.__main__ as train_cli
 from benchmarks import profile_torch_slice as PROF
@@ -103,12 +128,14 @@ from sparse_rcnn_tpu_torch import infer
 from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.data import synthetic
 from sparse_rcnn_tpu_torch.data.augment import augment_scene
-from sparse_rcnn_tpu_torch.data.pipeline import EvalBatches, TrainStream, collate
+from sparse_rcnn_tpu_torch import native
+from sparse_rcnn_tpu_torch.data.pipeline import VOXEL_KEYS, Loader, collate, device_batches
 from sparse_rcnn_tpu_torch.models.convert import convert_variables, tree_boundary
-from sparse_rcnn_tpu_torch.models.layers import SparseConv
+from sparse_rcnn_tpu_torch.models.layers import SparseBasicBlock, SparseConv
 from sparse_rcnn_tpu_torch.models.transfer import from_flax, unflatten_variables
 from sparse_rcnn_tpu_torch.models.unet import scatter_to_grid
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
+from sparse_rcnn_tpu_torch.ops import voxelize as V
 from sparse_rcnn_tpu_torch.train import checkpoint as CK
 from sparse_rcnn_tpu_torch.train import loop as TL
 from sparse_rcnn_tpu_torch.train.evaluate import fetch_eval_outputs, run_eval
@@ -131,6 +158,24 @@ C1_EVAL_SET = [f"data.val_scenes={EVAL_SCENES}", "train.eval_every=2",
 C2_EVAL_SET = [f"data.val_scenes={EVAL_SCENES}", "train.eval_every=2",
                "train.checkpoint_every=1", f"train.eval_scenes={EVAL_SCENES}",
                "train.log_every=1"]
+# phase 10: the data layer and the pooled backbone. The readers' files hold
+# more points than the configs' capacities (ScanNet and S3DIS scenes are
+# subsampled); the KITTI sweeps fit. *_SET: extra overrides of each config
+# (none on the card).
+CONFIG3 = os.path.join(ROOT, "configs", "config3_s3dis.yaml")
+CONFIG4 = os.path.join(ROOT, "configs", "config4_semantic_kitti.yaml")
+CONFIG_POOL = os.path.join(ROOT, "configs", "config1_pool_dropout.yaml")
+SCANNET_POINTS, S3DIS_POINTS, KITTI_POINTS = 300_000, 600_000, 120_000
+C2_DATA_SET, C3_SET, C4_SET, POOL_SET = [], [], [], []
+C2_LOADER_SET = ["data.num_workers=4", "data.prefetch=3", "data.host_voxelize=True"]
+POOL_TRAIN_STEPS = 4
+FED_STEPS = 3                   # train steps per fed-stream measurement
+# host against device voxel feats: f32 means, multiply by 1/count against
+# divide by count (tests/parity/test_native.py's tolerance)
+HOST_VOX_FEATS_TOL = 1e-5
+# one f32 config-2 step on host- against device-voxelized feats (apart by
+# those ulps): loss parts relative, as phase 6 holds the card to the CPU
+HOST_STEP_RTOL = 1e-4
 # dense-2 against fully sparse in bf16, per scale, of the largest entry: the
 # two forms round to bf16 after different sums (dense convs against
 # gathered taps) through up to 16 blocks
@@ -416,6 +461,11 @@ def dead_tile_cost(recs, role, unit="64-row tile") -> None:
 # phase 4: the config-1 slice on the card, against the CPU
 
 
+def val_batches(cfg) -> Loader:
+    """The ordered val pass, made in this thread (no worker to close)."""
+    return Loader(cfg, "val", train=False, threads=False)
+
+
 def tables(st, p2v, scales, aux) -> dict:
     out = {"coords": st.coords, "nvalid": st.nvalid, "p2v": p2v}
     for s, sc_ in enumerate(scales):
@@ -433,6 +483,48 @@ def run_scene(cfg, model, batch, device):
         out = model(st.feats, scales)
         res = infer.to_host(TL.finish(cfg, out, scales, p2v))
     return tables(st, p2v, scales, aux), res
+
+
+def card_vs_cpu(cfg, m_gpu, m_cpu, batches, per_forward: int) -> dict:
+    """Each batch through ``run_scene`` on the card (``per_forward`` kernel
+    launches) and on the CPU: tables bit-exact, proposal masks, semantic
+    predictions and classes exact, floats to tolerance. Returns the largest
+    difference of each float output."""
+    worst = {}
+    for i, batch in enumerate(batches):
+        before = sc.KERNEL.launches
+        tab_g, res_g = run_scene(cfg, m_gpu, batch, DEVICE)
+        torch.cuda.synchronize()
+        if sc.KERNEL.launches - before != per_forward:
+            raise AssertionError(f"scene {i}: {sc.KERNEL.launches - before} launches, "
+                                 f"not {per_forward}")
+        tab_c, res_c = run_scene(cfg, m_cpu, batch, "cpu")
+        for key in tab_c:
+            if not torch.equal(tab_g[key], tab_c[key]):
+                raise AssertionError(f"scene {i}: table {key} differs between card and CPU")
+        for key in ("proposal_mask", "point_semantic_pred"):
+            if not np.array_equal(res_g[key], res_c[key]):
+                raise AssertionError(f"scene {i}: {key} differs between card and CPU")
+        tol = {"proposal_scores": (1e-4, 1e-4), "cls_logits": (1e-4, 1e-4),
+               # bf16-read logits: one f32 ulp can move them one bf16 ulp
+               "point_mask_logits": (1e-2, 1e-3)}
+        for key, (rtol, atol) in tol.items():
+            np.testing.assert_allclose(res_g[key], res_c[key], rtol=rtol, atol=atol,
+                                       err_msg=f"scene {i}: {key}")
+            worst[key] = max(worst.get(key, 0.0),
+                             float(np.abs(res_g[key] - res_c[key]).max()))
+        for b in range(cfg.data.batch_size):
+            g = infer.scene_result(res_g, b, cfg.model.num_classes)
+            c = infer.scene_result(res_c, b, cfg.model.num_classes)
+            if not np.array_equal(g[2], c[2]):
+                raise AssertionError(f"scene {i}: pred_cls differs between card and CPU")
+            log(f"  scene {i}: {int(g[3].sum())} instances, {int((g[0] >= 0).sum())} "
+                f"labeled points; voxels {tab_g['nvalid'].tolist()}, overflow "
+                f"voxel={int(tab_g['voxel_overflow'])} "
+                f"hierarchy={int(tab_g['hierarchy_overflow'])}; tables bit-exact, "
+                f"masks/classes exact vs CPU, "
+                f"instance points differing {int((g[0] != c[0]).sum())}")
+    return worst
 
 
 def check_ties() -> None:
@@ -553,40 +645,8 @@ def phase_slice(out_dir: str, no_ckpt: str) -> tuple:
     seed = cfg.train.seed
     m_gpu = TL.build_model(cfg, DEVICE, torch.Generator().manual_seed(seed))
     m_cpu = TL.build_model(cfg, "cpu", torch.Generator().manual_seed(seed))
-    batches = list(itertools.islice(EvalBatches(cfg, "val"), n_scenes))
-    worst = {}
-    for i, batch in enumerate(batches):
-        before = sc.KERNEL.launches
-        tab_g, res_g = run_scene(cfg, m_gpu, batch, DEVICE)
-        torch.cuda.synchronize()
-        if sc.KERNEL.launches - before != 10:
-            raise AssertionError(f"scene {i}: {sc.KERNEL.launches - before} launches, not 10")
-        tab_c, res_c = run_scene(cfg, m_cpu, batch, "cpu")
-        for key in tab_c:
-            if not torch.equal(tab_g[key], tab_c[key]):
-                raise AssertionError(f"scene {i}: table {key} differs between card and CPU")
-        for key in ("proposal_mask", "point_semantic_pred"):
-            if not np.array_equal(res_g[key], res_c[key]):
-                raise AssertionError(f"scene {i}: {key} differs between card and CPU")
-        tol = {"proposal_scores": (1e-4, 1e-4), "cls_logits": (1e-4, 1e-4),
-               # bf16-read logits: one f32 ulp can move them one bf16 ulp
-               "point_mask_logits": (1e-2, 1e-3)}
-        for key, (rtol, atol) in tol.items():
-            np.testing.assert_allclose(res_g[key], res_c[key], rtol=rtol, atol=atol,
-                                       err_msg=f"scene {i}: {key}")
-            worst[key] = max(worst.get(key, 0.0),
-                             float(np.abs(res_g[key] - res_c[key]).max()))
-        for b in range(cfg.data.batch_size):
-            g = infer.scene_result(res_g, b, cfg.model.num_classes)
-            c = infer.scene_result(res_c, b, cfg.model.num_classes)
-            if not np.array_equal(g[2], c[2]):
-                raise AssertionError(f"scene {i}: pred_cls differs between card and CPU")
-            log(f"  scene {i}: {int(g[3].sum())} instances, {int((g[0] >= 0).sum())} "
-                f"labeled points; voxels {tab_g['nvalid'].tolist()}, overflow "
-                f"voxel={int(tab_g['voxel_overflow'])} "
-                f"hierarchy={int(tab_g['hierarchy_overflow'])}; tables bit-exact, "
-                f"masks/classes exact vs CPU, "
-                f"instance points differing {int((g[0] != c[0]).sum())}")
+    batches = list(itertools.islice(val_batches(cfg), n_scenes))
+    worst = card_vs_cpu(cfg, m_gpu, m_cpu, batches, 10)
     log(f"  card vs CPU max abs diff: {json.dumps(worst)} "
         "(tolerances rtol/atol 1e-4/1e-4 for scores and cls logits, "
         "1e-2/1e-3 for point-mask logits)")
@@ -859,7 +919,7 @@ def phase_train(out_dir: str) -> dict:
                                             for r in steps]))
 
     # the same weights and batches on the card and on the CPU
-    stream = TrainStream(cfg, seed=cfg.train.seed)
+    stream = Loader(cfg, seed=cfg.train.seed, threads=False)
     batches = [next(stream) for _ in range(3)]
     init = TL.build_model(cfg, "cpu", torch.Generator().manual_seed(cfg.train.seed))
     names = [n for n, _ in init.named_parameters()]
@@ -1345,7 +1405,8 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
     seed = cfg.train.seed
     cfg = load_config(CONFIG1, infer.parse_overrides(C1_EVAL_SET + ["train.total_steps=4"]))
     mem = TL.init_state(cfg, DEVICE, torch.Generator().manual_seed(seed))
-    stream = TrainStream(cfg, seed=seed)
+    # the batches train.main read: its Loader's order, made in this thread
+    stream = Loader(cfg, seed=seed, threads=False)
     for _ in range(2):
         TL.train_step(cfg, mem, TL.to_device(next(stream), DEVICE, TL.TRAIN_KEYS))
     restored = CK.restore(CK.make_manager(ck1), TL.init_state(
@@ -1401,7 +1462,7 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
     for dev in (DEVICE, "cpu"):
         states[dev] = CK.restore(best, TL.init_state(cfg, dev,
                                                      torch.Generator().manual_seed(seed)))
-        res[dev] = run_eval(cfg, states[dev], EvalBatches(cfg, "val"), per_class=True,
+        res[dev] = run_eval(cfg, states[dev], val_batches(cfg), per_class=True,
                             per_scene=True)
     keys = [k for k in res["cpu"] if k.startswith(("mAP", "AP@", "scene_map50", "semantic"))]
     if sorted(res[DEVICE]) != sorted(res["cpu"]) or res[DEVICE]["scenes"] != n:
@@ -1413,7 +1474,7 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
     if diff > 1e-6 or res[DEVICE]["per_scene_mAP@0.5"] != res["cpu"]["per_scene_mAP@0.5"]:
         raise AssertionError("run_eval on the card differs from the CPU")
     rep["card_vs_cpu_max_abs_diff"] = diff
-    raw = TL.eval_step(cfg, states[DEVICE], TL.to_device(next(iter(EvalBatches(cfg, "val"))), DEVICE))
+    raw = TL.eval_step(cfg, states[DEVICE], TL.to_device(next(val_batches(cfg)), DEVICE))
     want = np.packbits(raw["point_mask_logits"].cpu().numpy() > 0, axis=-1)
     if not np.array_equal(raw["point_mask_bits"].cpu().numpy(), want):
         raise AssertionError("point_mask_bits on the card differ from np.packbits")
@@ -1452,7 +1513,7 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
         f"in the eval form (dense-{forms[1]}), {n_eval} forward launches an eval forward")
 
     # f. figures: bytes a config-2 batch fetches, checkpoint size and times
-    out = TL.eval_step(cfg2, ev, TL.to_device(next(iter(EvalBatches(cfg2, "val"))), DEVICE))
+    out = TL.eval_step(cfg2, ev, TL.to_device(next(val_batches(cfg2)), DEVICE))
     host = fetch_eval_outputs(out)
     fetch = {"logits_bytes": out["point_mask_logits"].numel() * 4,
              "bits_bytes": out["point_mask_bits"].numel(),
@@ -1482,6 +1543,449 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
     return rep
 
 
+# --------------------------------------------------------------------------
+# phase 10: the data layer (readers, Loader, host voxelizer) and the pooled
+# backbone
+
+
+def write_datasets(root: str) -> dict:
+    """Each reader's layout under ``root``, from the port's generator:
+    ScanNet (``.npz`` and ``.pth`` scenes of ``SCANNET_POINTS``, 4 train and
+    3 val), S3DIS (flat ``Area_1_*``/``Area_5_*`` of ``S3DIS_POINTS``) and
+    SemanticKITTI (``velodyne/*.bin`` and ``labels/*.label`` of
+    ``KITTI_POINTS`` in sequences 00 and 08, stretched to 100 x 100 x 6 m
+    as ``bench.py``'s config-4 scenes). Returns the roots."""
+    t0 = time.perf_counter()
+    roots = {k: os.path.join(root, k) for k in ("scannet", "s3dis", "semantic_kitti")}
+
+    def labelled(seed, n, **kw):
+        s = synthetic.generate_scene(seed, num_points=n, **kw)
+        v = s["valid"]
+        return s["points"][v], s["feats"][v], s["point_semantic"][v], s["point_instance"][v]
+
+    for split, seeds in (("train", range(4)), ("val", range(4, 7))):
+        os.makedirs(os.path.join(roots["scannet"], split))
+        for i in seeds:
+            arrays = labelled(500 + i, SCANNET_POINTS, num_instances=12, num_classes=18,
+                              extent=8.0)
+            name = os.path.join(roots["scannet"], split, f"scene{i:04d}_00")
+            if i % 2:
+                torch.save(arrays, name + ".pth")
+            else:
+                np.savez(name + ".npz", **dict(zip(("points", "feats", "semantic",
+                                                    "instance"), arrays)))
+    os.makedirs(roots["s3dis"])
+    for area, room, seed in ((1, "office_1", 600), (1, "hallway_2", 601), (5, "office_3", 602)):
+        arrays = labelled(seed, S3DIS_POINTS, num_instances=16, num_classes=13, extent=14.0)
+        np.savez(os.path.join(roots["s3dis"], f"Area_{area}_{room}.npz"),
+                 **dict(zip(("points", "feats", "semantic", "instance"), arrays)))
+    for seq, seeds in (("00", (700, 701)), ("08", (702,))):
+        vdir = os.path.join(roots["semantic_kitti"], "sequences", seq, "velodyne")
+        ldir = os.path.join(roots["semantic_kitti"], "sequences", seq, "labels")
+        os.makedirs(vdir)
+        os.makedirs(ldir)
+        for k, seed in enumerate(seeds):
+            s = synthetic.stretch_scene(synthetic.generate_scene(
+                seed, num_points=KITTI_POINTS, num_instances=12, num_classes=8,
+                num_features=1, extent=8.0), [12.5, 12.5, 0.75])
+            v = s["valid"]
+            remission = np.clip((s["feats"][v, :1] + 1) / 2, 0, 1)
+            np.concatenate([s["points"][v], remission], 1).astype(np.float32).tofile(
+                os.path.join(vdir, f"{k:06d}.bin"))
+            sem = np.maximum(s["point_semantic"][v], 0).astype(np.uint32)
+            inst = (s["point_instance"][v] + 1).astype(np.uint32)       # 0: no instance
+            ((inst << 16) | sem).tofile(os.path.join(ldir, f"{k:06d}.label"))
+    log(f"  wrote the datasets in {time.perf_counter() - t0:.1f} s: ScanNet 4 + 3 scenes of "
+        f"{SCANNET_POINTS} points (.npz and .pth), S3DIS 3 rooms of {S3DIS_POINTS}, "
+        f"SemanticKITTI 3 sweeps of {KITTI_POINTS} (100 x 100 x 6 m)")
+    return roots
+
+
+def train_losses(path: str, steps: int, what: str) -> list:
+    keys = ("rpn_obj", "rpn_box", "roi_cls", "roi_mask", "semantic", "total", "grad_norm")
+    got = [r for r in jsonl(path) if r["kind"] == "train"]
+    if len(got) != steps or not all(np.isfinite(r[k]) for r in got for k in keys):
+        raise AssertionError(f"{what} logged {got}")
+    return [{k: r[k] for k in ("step",) + keys} for r in got]
+
+
+def form_convs(cfg) -> tuple:
+    """Sparse convs of one eval forward (the eval form) and of one train
+    step's forward (the train form), and the forward launches of one train
+    step: with remat the residual blocks' convs run again in the backward."""
+    train = TL.build_model(TL.train_cfg(cfg), "cpu")
+    again = sum(isinstance(m, SparseConv) for blk in train.backbone.modules()
+                if isinstance(blk, SparseBasicBlock) for m in blk.modules())
+    n_train = sparse_convs(train)
+    return (sparse_convs(TL.build_model(cfg, "cpu")), n_train,
+            n_train + again * cfg.model.backbone.remat)
+
+
+def host_vs_device_tables(cfg, batch) -> dict:
+    """The host voxelizer's tables of ``batch`` against the device's voxelize
+    of the same points, on the card: coords, nvalid, p2v and overflow bit
+    for bit, feats within ``HOST_VOX_FEATS_TOL``; and the device voxelize's
+    warm ms a scene."""
+    tb = TL.to_device(batch, DEVICE, TL.TRAIN_KEYS)
+    run = lambda _: V.voxelize_batch(tb["points"], tb["feats"], tb["valid"],  # noqa: E731
+                                     cfg.data.voxel_size, cfg.data.voxel_capacity)
+    with torch.no_grad():
+        st, p2v, ovf = run(None)
+        for name, a, b in (("coords", tb["voxel_coords"], st.coords),
+                           ("nvalid", tb["voxel_nvalid"], st.nvalid),
+                           ("p2v", tb["p2v"], p2v), ("overflow", tb["voxel_overflow"], ovf)):
+            if not torch.equal(a.to(b.dtype), b):
+                raise AssertionError(f"host voxelizer {name} differs from the device's")
+        err = (tb["voxel_feats"] - st.feats).abs().max().item()
+        if not torch.allclose(tb["voxel_feats"], st.feats, rtol=HOST_VOX_FEATS_TOL,
+                              atol=HOST_VOX_FEATS_TOL):
+            raise AssertionError(f"host voxel feats differ from the device's by {err}")
+        dev_ms = timed_steps(run, [None], reps=5)["median"] / len(batch["points"])
+    host_ms = []
+    for b in range(len(batch["points"])):
+        args = (batch["points"][b], batch["feats"][b], batch["valid"][b].astype(np.uint8),
+                np.asarray(cfg.data.voxel_size, np.float32), cfg.data.voxel_capacity)
+        for r in range(4):
+            t0 = time.perf_counter()
+            native.voxelize_scene(*args)
+            if r:
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+    rec = {"voxels": st.nvalid.tolist(), "overflow": ovf.tolist(), "feats_max_abs_diff": err,
+           "device_voxelize_ms_per_scene": dev_ms,
+           "host_voxelize_ms_per_scene_one_thread": statistics.median(host_ms)}
+    log(f"  host voxelizer vs the device's voxelize on one val batch: coords, nvalid, p2v, "
+        f"overflow bit for bit, feats max |diff| {err:.3e} (tolerance "
+        f"{HOST_VOX_FEATS_TOL}); voxels {rec['voxels']}; ms a scene: device "
+        f"{dev_ms:.3f} (warm, card), host C++ {rec['host_voxelize_ms_per_scene_one_thread']:.3f}"
+        " (one thread, median of 3 per scene)")
+    return rec
+
+
+def fed_steps(cfg, init, stream, steps: int) -> dict:
+    """``steps`` train steps, each on the next ``(host, device)`` batch of
+    ``stream``, after a warm one: wall per step on the host clock (ending
+    in a synchronise), then as many again under ``torch.profiler`` for the
+    device's busy time (the union of its kernel and copy intervals). The
+    idle share is 1 - busy / unprofiled wall (as ``PERF.md`` §5 reads it;
+    the profiler's own cost inflates its window's wall, whose share is
+    ``idle_share_profiled_window``)."""
+    state = TL.init_state(cfg, model=copy.deepcopy(init))
+    TL.train_step(cfg, state, next(stream)[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        TL.train_step(cfg, state, next(stream)[1])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            TL.train_step(cfg, state, next(stream)[1])
+        torch.cuda.synchronize()
+    pwall = (time.perf_counter() - t0) * 1e3 / steps
+    device = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    if not device:
+        raise AssertionError("the profiler recorded no device events")
+    busy = PROF.union_us(device) / 1e3 / steps
+    return {"wall_ms_per_step": wall, "profiled_wall_ms_per_step": pwall,
+            "busy_ms_per_step": busy, "idle_share": 1 - busy / wall,
+            "idle_share_profiled_window": 1 - busy / pwall}
+
+
+def loader_vs_sync(cfg, sync_cfg, init) -> dict:
+    """Config 2's train step fed by the threaded, host-voxelizing Loader
+    (pinned copies) against the synchronous single-worker stream (device
+    voxelize, copies from pageable memory), in turns: sync, Loader,
+    resident, Loader, sync. ``resident``: the sync stream's batches copied
+    to the card before the steps, so no host work runs between them."""
+    runs = {"loader": [], "sync": [], "resident": []}
+    for kind in ("sync", "loader", "resident", "loader", "sync"):
+        if kind == "resident":
+            src = Loader(sync_cfg, seed=cfg.train.seed, threads=False)
+            staged = [TL.to_device(next(src), DEVICE, TL.TRAIN_KEYS)
+                      for _ in range(1 + 2 * FED_STEPS)]
+            rec = fed_steps(sync_cfg, init, ((None, b) for b in staged), FED_STEPS)
+            rec["wait_s_per_batch"], rec["batches_out"] = 0.0, len(staged)
+            del staged
+        elif kind == "loader":
+            with Loader(cfg, seed=cfg.train.seed) as loader:
+                rec = fed_steps(cfg, init, device_batches(loader, DEVICE, TL.TRAIN_KEYS),
+                                FED_STEPS)
+                rec["wait_s_per_batch"] = loader.wait_s / loader.batches_out
+                rec["batches_out"] = loader.batches_out
+        else:
+            sync = Loader(sync_cfg, seed=cfg.train.seed, threads=False)
+            rec = fed_steps(sync_cfg, init, ((h, TL.to_device(h, DEVICE, TL.TRAIN_KEYS))
+                                             for h in sync), FED_STEPS)
+            rec["wait_s_per_batch"] = sync.wait_s / sync.batches_out
+            rec["batches_out"] = sync.batches_out
+        runs[kind].append(rec)
+        log(f"  config-2 train step fed by the {kind:6s}: " + json.dumps(
+            {k: round(v, 4) if isinstance(v, float) else v for k, v in rec.items()}))
+    return runs
+
+
+def pool_kernels(cfg, model, batch, n_fwd: int) -> dict:
+    """The kernels against their plain versions, timed, on the inputs that
+    one config1_pool_dropout eval forward and one train step (dropout on)
+    give them."""
+    calls = capture(lambda: run_scene(cfg, model, batch, DEVICE), "conv_forward")
+    if len(calls) != n_fwd:
+        raise AssertionError(f"{len(calls)} forward convs in one pooled forward, not {n_fwd}")
+    log(f"  kernels vs plain versions on the inputs of the pooled path ({n_fwd} forward "
+        "convs of one eval forward, the dgrads and wgrads of one train step; tolerances "
+        "as in phase 3)")
+    fwd = [measure_conv(f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}", f, i, w,
+                        reps=QUICK_REPS) for f, i, w in calls]
+    tb = TL.to_device(batch, DEVICE, TL.TRAIN_KEYS)
+    gen = TL.dropout_generator(cfg, 0, DEVICE)
+    dg = []
+    wg = capture(lambda: dg.extend(capture(
+        lambda: TL.loss_and_grads(cfg, copy.deepcopy(model), tb, gen), "conv_dgrad")),
+        "conv_wgrad")
+    if (len(dg), len(wg)) != (n_fwd - 1, n_fwd):
+        raise AssertionError(f"{len(dg)} dgrad and {len(wg)} wgrad calls in one pooled step")
+    d = [measure_dgrad(f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}", g, t, w, reps=QUICK_REPS)
+         for g, t, w in dg]
+    w_ = [measure_wgrad(f"K{t.shape[1]} {f.shape[2]}->{g.shape[2]}", f, t, g, reps=QUICK_REPS)
+          for f, t, g in wg]
+    require_ok(fwd + d + w_, "pooled path, main-path inputs")
+    return {"forward": fwd, "dgrad": d, "wgrad": w_}
+
+
+def reader_config(name, path, sets, out_dir, tmp_dir, rep) -> dict:
+    """``infer.main`` on one batch and ``train.main`` for 2 steps of a
+    reader-fed config at full width; then warm ms a scene of the eval step
+    and a train step on the reader's batches, and peak memory."""
+    ck = os.path.join(tmp_dir, f"ckpt_{name}")
+    sets = sets + [f"train.checkpoint_dir={ck}", "train.log_every=1"]
+    cfg = load_config(path, infer.parse_overrides(sets))
+    n_eval, n_train, n_fwd = form_convs(cfg)
+    args = sum((["--set", x] for x in sets), ["--config", path])
+    bs = cfg.data.batch_size
+    inf_dir = os.path.join(out_dir, f"infer_{name}")
+    _, got = run_cli(infer.main, args + ["--num-scenes", str(bs), "--out-dir", inf_dir,
+                                         "--device", DEVICE], f"{name} infer.main")
+    expect(got, (n_eval, 0, 0), f"{name} infer.main launches")
+    rep["launches"][f"{name} infer.main (1 batch)"] = got
+    for i in range(bs):
+        with np.load(os.path.join(inf_dir, f"scene{i:04d}.npz")) as f:
+            if f["instance"].shape != (f["points"].shape[0],) or not np.isfinite(f["scores"]).all():
+                raise AssertionError(f"{name} infer scene{i:04d}.npz malformed")
+    log_path = os.path.join(out_dir, f"train_log_{name}.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    torch.cuda.reset_peak_memory_stats()
+    state, got = run_cli(train_cli.main, args + ["--set", "train.total_steps=2", "--device",
+                                                 DEVICE, "--log-file", log_path],
+                         f"{name} train.main, 2 steps")
+    expect(got, (2 * n_fwd, 2 * (n_train - 1), 2 * n_train), f"{name} train.main launches")
+    rep["launches"][f"{name} train.main (2 steps)"] = got
+    out = {"convs": {"eval": n_eval, "train": n_train, "train_forward_launches": n_fwd},
+           "losses": train_losses(log_path, 2, f"{name} train.main"),
+           "train_peak_bytes": torch.cuda.max_memory_allocated()}
+    ev = TL.eval_model(cfg, state)
+    val = TL.to_device(next(val_batches(cfg)), DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    out["eval_ms_per_scene"] = timed_steps(lambda b: TL.eval_step(cfg, ev, b), [val],
+                                           reps=3)["median"] / bs
+    out["eval_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del ev, val
+    trb = TL.to_device(next(Loader(cfg, seed=cfg.train.seed, threads=False)), DEVICE,
+                       TL.TRAIN_KEYS)
+    out["train_ms_per_step"] = timed_steps(lambda b: TL.train_step(cfg, state, b), [trb],
+                                           reps=2)["median"]
+    log(f"  {name}: {json.dumps({k: v for k, v in out.items() if k != 'losses'})}; losses "
+        + json.dumps([{k: round(v, 4) for k, v in r.items()} for r in out["losses"]]))
+    return out
+
+
+def phase_data_layer(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
+    """``tmp_dir`` takes the datasets and the checkpoints; ``c2_convs``:
+    config 2's sparse convs in the eval and the train form (phase 8)."""
+    log("[phase 10] the data layer (readers, the threaded Loader with pinned copies, the "
+        "C++ host voxelizer) and the pooled backbone, at full width")
+    t0 = time.perf_counter()
+    native.load()
+    log(f"  built {os.path.relpath(str(native.build()), ROOT)} "
+        f"({time.perf_counter() - t0:.1f} s with the load)")
+    roots = write_datasets(os.path.join(tmp_dir, "data"))
+    rep = {"launches": {}, "card": smi}
+
+    # b. config 2 through the ScanNet reader, the threaded host-voxelizing Loader
+    ck2 = os.path.join(tmp_dir, "ckpt_config2_scannet")
+    sets = C2_DATA_SET + [f"data.data_root={roots['scannet']}"] + C2_LOADER_SET + [
+        f"data.val_scenes={EVAL_SCENES}", "train.eval_every=3", "train.checkpoint_every=3",
+        f"train.eval_scenes={EVAL_SCENES}", "train.log_every=1", f"train.checkpoint_dir={ck2}"]
+    cfg = load_config(CONFIG2, infer.parse_overrides(sets))
+    d = cfg.data
+    if (d.dataset, d.num_workers, d.prefetch, d.host_voxelize) != ("scannet", 4, 3, True):
+        raise AssertionError(f"config 2 data settings {d}")
+    n_eval, n_train = c2_convs
+    args = sum((["--set", x] for x in sets), ["--config", CONFIG2])
+    log_path = os.path.join(out_dir, "train_log_config2_scannet.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    _, got = run_cli(train_cli.main, args + ["--set", "train.total_steps=3", "--device", DEVICE,
+                                             "--log-file", log_path],
+                     "config2 (ScanNet reader, Loader) train.main, 3 steps")
+    evals_fwd = -(-EVAL_SCENES // d.batch_size)
+    expect(got, (3 * n_train + evals_fwd * n_eval, 3 * (n_train - 1), 3 * n_train),
+           "config2 ScanNet train.main launches")
+    rep["launches"]["config2 scannet train.main (3 steps, 1 eval)"] = got
+    rep["config2_losses"] = train_losses(log_path, 3, "config2 ScanNet train.main")
+    loader_line = [r for r in jsonl(log_path) if r["kind"] == "loader"]
+    if len(loader_line) != 1 or loader_line[0]["batches_out"] < 3 or \
+            loader_line[0]["scenes_voxelized"] < 3 * d.batch_size:
+        raise AssertionError(f"config2 ScanNet train.main loader line {loader_line}")
+    rep["train_main_loader"] = {k: loader_line[0][k] for k in (
+        "wait_s", "batches_out", "voxelize_s", "scenes_voxelized")}
+    log("  train.main's Loader: " + json.dumps(rep["train_main_loader"]) + "; losses "
+        + json.dumps([{k: round(v, 4) for k, v in r.items()} for r in rep["config2_losses"]]))
+    res, got = run_cli(eval_cli.main, args + ["--best", "--device", DEVICE],
+                       "config2 (ScanNet reader) eval.main --best")
+    expect(got, (evals_fwd * n_eval, 0, 0), "config2 ScanNet eval.main launches")
+    rep["launches"]["config2 scannet eval.main --best (3 scenes)"] = got
+    if res["scenes"] != EVAL_SCENES:
+        raise AssertionError(f"config2 ScanNet eval.main scored {res['scenes']} scenes")
+    rep["config2_eval"] = {k: res[k] for k in res if k.startswith(("mAP", "eval_", "scenes"))}
+
+    with Loader(cfg, "val", train=False) as loader:
+        batch = next(loader)
+    rep["host_vs_device_tables"] = host_vs_device_tables(cfg, batch)
+    rep["host_voxelize_ms_per_scene_in_workers"] = (
+        1e3 * rep["train_main_loader"]["voxelize_s"] / rep["train_main_loader"]["scenes_voxelized"])
+
+    # the host-voxelized train step against the device-voxelized one, f32
+    f32 = load_config(CONFIG2, infer.parse_overrides(sets + ["model.backbone.dtype=float32"]))
+    init = TL.build_model(TL.train_cfg(f32), DEVICE, torch.Generator().manual_seed(f32.train.seed))
+    with Loader(f32, seed=f32.train.seed) as loader:
+        hb = next(loader)
+    metrics = {}
+    for form, b in (("host", hb), ("device", {k: v for k, v in hb.items()
+                                              if k not in VOXEL_KEYS})):
+        state = TL.init_state(f32, model=copy.deepcopy(init))
+        _, m = TL.train_step(f32, state, TL.to_device(b, DEVICE, TL.TRAIN_KEYS))
+        metrics[form] = {k: float(v) for k, v in m.items()}
+        del state
+    rel = {k: abs(metrics["host"][k] - metrics["device"][k]) / max(abs(metrics["device"][k]),
+                                                                     1e-30)
+           for k in metrics["device"]}
+    log(f"  one f32 train step, host-voxelized vs device-voxelized batch: largest relative "
+        f"difference {max(rel.values()):.3e} ({max(rel, key=rel.get)}; tolerance "
+        f"{HOST_STEP_RTOL}); total {metrics['host']['total']!r} vs "
+        f"{metrics['device']['total']!r}")
+    if max(rel.values()) > HOST_STEP_RTOL:
+        raise AssertionError(f"host- and device-voxelized steps differ: {rel}")
+    rep["host_vs_device_step_rel"] = rel
+    del init
+
+    # the train step fed by the Loader against the synchronous stream
+    init = TL.build_model(TL.train_cfg(cfg), DEVICE, torch.Generator().manual_seed(cfg.train.seed))
+    sync_cfg = load_config(CONFIG2, infer.parse_overrides(
+        sets + ["data.host_voxelize=False", "data.num_workers=1"]))
+    rep["loader_vs_sync"] = loader_vs_sync(cfg, sync_cfg, init)
+    del init
+    torch.cuda.empty_cache()
+
+    # c. config 3 through the S3DIS reader, config 4 through the KITTI reader
+    rep["config3"] = reader_config("config3", CONFIG3, C3_SET + [
+        f"data.data_root={roots['s3dis']}"], out_dir, tmp_dir, rep)
+    torch.cuda.empty_cache()
+    rep["config4"] = reader_config("config4", CONFIG4, C4_SET + [
+        f"data.data_root={roots['semantic_kitti']}"], out_dir, tmp_dir, rep)
+    torch.cuda.empty_cache()
+
+    # d. config1_pool_dropout: infer, train twice (bit-equal), card vs CPU
+    cfg = load_config(CONFIG_POOL, infer.parse_overrides(POOL_SET))
+    n_fwd = form_convs(cfg)[0]
+    pool_sets = POOL_SET + ["train.log_every=1"]
+    inf_dir = os.path.join(out_dir, "infer_pool")
+    base = sum((["--set", x] for x in pool_sets), ["--config", CONFIG_POOL])
+    _, got = run_cli(infer.main, base + ["--set", f"train.checkpoint_dir={tmp_dir}/none",
+                                         "--num-scenes", "3", "--out-dir", inf_dir,
+                                         "--device", DEVICE], "pool_dropout infer.main")
+    forwards = -(-3 // cfg.data.batch_size)
+    expect(got, (forwards * n_fwd, 0, 0), "pool_dropout infer.main launches")
+    rep["launches"]["pool_dropout infer.main (3 scenes)"] = got
+    states, losses = [], []
+    for run in (1, 2):
+        log_path = os.path.join(out_dir, f"train_log_pool_{run}.jsonl")
+        if os.path.exists(log_path):
+            os.remove(log_path)
+        torch.cuda.reset_peak_memory_stats()
+        st, got = run_cli(train_cli.main, base + [
+            "--set", f"train.total_steps={POOL_TRAIN_STEPS}",
+            "--set", f"train.checkpoint_dir={os.path.join(tmp_dir, f'ckpt_pool_{run}')}",
+            "--device", DEVICE, "--log-file", log_path], f"pool_dropout train.main, run {run}")
+        expect(got, (POOL_TRAIN_STEPS * n_fwd, POOL_TRAIN_STEPS * (n_fwd - 1),
+                     POOL_TRAIN_STEPS * n_fwd), "pool_dropout train.main launches")
+        rep["launches"][f"pool_dropout train.main ({POOL_TRAIN_STEPS} steps, run {run})"] = got
+        states.append(st)
+        losses.append(train_losses(log_path, POOL_TRAIN_STEPS, "pool_dropout train.main"))
+    rep["pool_train_peak_bytes"] = torch.cuda.max_memory_allocated()
+    n_t = require_equal_states(states[0], states[1], "pool_dropout, two train.main runs")
+    if [{k: v for k, v in r.items()} for r in losses[0]] != losses[1]:
+        raise AssertionError(f"pool_dropout losses differ run to run: {losses}")
+    rep["pool_losses"] = losses[0]
+    log(f"  pool_dropout: two train.main runs of {POOL_TRAIN_STEPS} steps bit-equal ({n_t} "
+        "tensors, torch.equal; losses equal); losses "
+        + json.dumps([{k: round(v, 5) for k, v in r.items()} for r in losses[0]]))
+    seed = cfg.train.seed
+    m_gpu = TL.build_model(cfg, DEVICE, torch.Generator().manual_seed(seed))
+    m_cpu = TL.build_model(cfg, "cpu", torch.Generator().manual_seed(seed))
+    batches = list(itertools.islice(val_batches(cfg), 3))
+    worst = card_vs_cpu(cfg, m_gpu, m_cpu, batches, n_fwd)
+    rep["pool_card_vs_cpu"] = worst
+    log(f"  pool_dropout eval step, card vs CPU max abs diff: {json.dumps(worst)} "
+        "(tolerances as in phase 4; dropout inert)")
+    rep["pool_main_path"] = pool_kernels(cfg, m_gpu, batches[0], n_fwd)
+    tb = [TL.to_device(b, DEVICE) for b in batches]
+    torch.cuda.reset_peak_memory_stats()
+    rep["pool_eval_ms_per_scene"] = timed_steps(lambda b: TL.eval_step(cfg, m_gpu, b), tb,
+                                                reps=3)["median"] / cfg.data.batch_size
+    rep["pool_eval_peak_bytes"] = torch.cuda.max_memory_allocated()
+    with Loader(cfg, seed=seed, threads=False) as loader:
+        trb = [TL.to_device(next(loader), DEVICE, TL.TRAIN_KEYS) for _ in range(2)]
+    state = TL.init_state(cfg, model=m_gpu)
+    torch.cuda.reset_peak_memory_stats()
+    rep["pool_train_ms_per_step"] = timed_steps(lambda b: TL.train_step(cfg, state, b), trb,
+                                                reps=2)["median"]
+    rep["pool_train_step_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rep["convs"] = {"pool_dropout": n_fwd, "config3": rep["config3"]["convs"],
+                    "config4": rep["config4"]["convs"]}
+    summary = {
+        "card": smi,
+        "loader_wait_s_per_batch": {k: [r["wait_s_per_batch"] for r in v]
+                                    for k, v in rep["loader_vs_sync"].items()
+                                    if k != "resident"},
+        "train_main_loader": rep["train_main_loader"],
+        "host_voxelize_ms_per_scene": {
+            "cxx_in_workers": rep["host_voxelize_ms_per_scene_in_workers"],
+            "cxx_one_thread": rep["host_vs_device_tables"]["host_voxelize_ms_per_scene_one_thread"],
+            "device_voxelize_batch": rep["host_vs_device_tables"]["device_voxelize_ms_per_scene"]},
+        "config2_train_step": {k: [{m: r[m] for m in ("wall_ms_per_step", "busy_ms_per_step",
+                                                      "idle_share", "idle_share_profiled_window")}
+                                   for r in v] for k, v in rep["loader_vs_sync"].items()},
+        "eval_ms_per_scene": {"config3": rep["config3"]["eval_ms_per_scene"],
+                              "config4": rep["config4"]["eval_ms_per_scene"],
+                              "pool_dropout": rep["pool_eval_ms_per_scene"]},
+        "train_ms_per_step": {"config3": rep["config3"]["train_ms_per_step"],
+                              "config4": rep["config4"]["train_ms_per_step"],
+                              "pool_dropout": rep["pool_train_ms_per_step"]},
+        "peak_bytes": {"config3": [rep["config3"]["eval_peak_bytes"],
+                                   rep["config3"]["train_peak_bytes"]],
+                       "config4": [rep["config4"]["eval_peak_bytes"],
+                                   rep["config4"]["train_peak_bytes"]],
+                       "pool_dropout": [rep["pool_eval_peak_bytes"],
+                                         rep["pool_train_step_peak_bytes"]]},
+    }
+    rep["summary"] = summary
+    log(f"  {smi}")
+    return rep
+
+
 def totals(main_path) -> dict:
     """Sums over one step's main-path records: kernel, plain, library and
     bound ms, and what bounds the step (its bytes over the card's memory rate
@@ -1499,14 +2003,15 @@ def totals(main_path) -> dict:
 
 
 def kernel_entry(name, source, replaces, launches, recs_all, main_path, library, per,
-                 config1) -> dict:
-    """One kernel of the ``kernels`` line: this slice's main path (config 2,
-    bf16) at the top level, config 1's (f32) under ``config1``."""
+                 config1, pool) -> dict:
+    """One kernel of the ``kernels`` line: config 2's main path (bf16) at the
+    top level, config 1's (f32) under ``config1``, config1_pool_dropout's
+    (f32) under ``pool_dropout``."""
     top = totals(main_path)
-    top["max_abs_err"] = max(r["max_abs_err"] for r in recs_all + main_path + config1)
+    top["max_abs_err"] = max(r["max_abs_err"] for r in recs_all + main_path + config1 + pool)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, **top, "library": library, "per": per,
-            "config1": totals(config1)}
+            "config1": totals(config1), "pool_dropout": totals(pool)}
 
 
 def main(argv=None) -> int:
@@ -1538,8 +2043,9 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     train = phase_train(args.out_dir)
     golden_train = phase_golden_train()
     c2 = phase_config2(args.out_dir, tmp_dir)
-    p9 = phase_eval_checkpoints(args.out_dir, tmp_dir, smi,
-                                (c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"]))
+    c2_convs = (c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"])
+    p9 = phase_eval_checkpoints(args.out_dir, tmp_dir, smi, c2_convs)
+    p10 = phase_data_layer(args.out_dir, tmp_dir, smi, c2_convs)
 
     src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
     records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
@@ -1548,7 +2054,8 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
              f"config1 train.main ({TRAIN_STEPS} steps)": train["launches"],
              "config2 infer.main (1 batch)": c2["launches_infer"],
              f"config2 train.main ({C2_TRAIN_STEPS} steps)": c2["launches_train"],
-             **p9["launches"]}
+             **p9["launches"], **p10["launches"]}
+    pool = p10["pool_main_path"]
     n_eval, n_train = c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"]
     kernels = {"kernels": [
         dict(kernel_entry(
@@ -1556,7 +2063,8 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
             c2["forward_main_path"], "feats[idx] im2col gather + torch.matmul (two calls)",
             f"one config-2 eval forward ({n_eval} convs, bf16, dense-2, main-path inputs); "
             f"launches: config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one config-1 "
-            f"forward (10 convs, f32); per-conv records in {records}", main_path),
+            f"forward (10 convs, f32); pool_dropout: one pooled forward; per-conv records "
+            f"in {records}", main_path, pool["forward"]),
             launches_by_path={k: v[0] for k, v in paths.items()}),
         dict(kernel_entry(
             "sparse_conv_dgrad", src, "sparse_rcnn_tpu/ops/sparse_conv.py:536", dgrad,
@@ -1564,7 +2072,8 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
             "g[t_idx] im2col gather + torch.matmul with W^T (two calls)",
             f"one config-2 train step ({n_train - 1} dgrads, bf16, dense-3, main-path "
             f"inputs); launches: config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one "
-            "config-1 train step (9 dgrads, f32)", train["dgrad_main_path"]),
+            "config-1 train step (9 dgrads, f32); pool_dropout: one pooled train step",
+            train["dgrad_main_path"], pool["dgrad"]),
             launches_by_path={k: v[1] for k, v in paths.items()}),
         dict(kernel_entry(
             "sparse_conv_wgrad", src, "sparse_rcnn_tpu/ops/sparse_conv.py:542", wgrad,
@@ -1572,7 +2081,8 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
             "g[t_idx] gather + torch.matmul with feats^T (two calls)",
             f"one config-2 train step ({n_train} wgrads, bf16, dense-3, main-path inputs); "
             f"launches: config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one config-1 "
-            "train step (10 wgrads, f32)", train["wgrad_main_path"]),
+            "train step (10 wgrads, f32); pool_dropout: one pooled train step",
+            train["wgrad_main_path"], pool["wgrad"]),
             launches_by_path={k: v[2] for k, v in paths.items()}),
     ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1581,13 +2091,14 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
               "backward_random": bwd_recs, "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
               "train": train, "golden_train": golden_train, "config2": c2,
-              "eval_checkpoints": p9}
+              "eval_checkpoints": p9, "data_layer": p10}
     with open(os.path.join(args.out_dir, "kernels.json"), "w") as f:
         json.dump(record, f, indent=1)
-    log(f"[phase 10] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[phase 11] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"eval_checkpoints": {k: p9[k] for k in (
         "card", "eval_split_per_scene", "config2_fetch", "config2_checkpoint",
         "card_vs_cpu_max_abs_diff")}}))
+    print(json.dumps({"data_layer": p10["summary"]}))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

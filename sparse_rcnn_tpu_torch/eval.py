@@ -9,8 +9,10 @@ Runs on CUDA unless ``--device cpu``. Restores the latest checkpoint of
 ``train.checkpoint_dir`` (``--step N`` for another, ``--best`` for
 ``<checkpoint_dir>_best``) and logs a ``restored`` line, or a ``warning``
 line and scores the seeded init; then scores the whole split (or
-``--max-batches``), each scene once, and logs one ``eval`` jsonl line: the
-mAP dict of ``train/evaluate.py::run_eval``. With ``train.ema > 0`` the EMA
+``--max-batches``), each scene once, read by the eval ``Loader`` (one worker
+thread ahead of the steps; the host voxelizer with ``data.host_voxelize``),
+and logs one ``eval`` jsonl line: the mAP dict of
+``train/evaluate.py::run_eval``. With ``train.ema > 0`` the EMA
 weights are scored, unless ``--raw-params``.
 """
 
@@ -21,7 +23,7 @@ import argparse
 import torch
 
 from .config import load_config
-from .data.pipeline import EvalBatches
+from .data.pipeline import Loader
 from .infer import parse_overrides, setup_device
 from .train import checkpoint as CK
 from .train import loop as TL
@@ -54,7 +56,6 @@ def main(argv=None) -> dict:
     device = setup_device(args.device)
     cfg = load_config(args.config, parse_overrides(args.overrides))
     log = JsonlLogger()
-    loader = EvalBatches(cfg, args.split)
     state = TL.init_state(cfg, device, torch.Generator().manual_seed(cfg.train.seed))
     ckpt_dir = (CK.best_dir(cfg.train.checkpoint_dir) if args.best
                 else cfg.train.checkpoint_dir)
@@ -67,9 +68,10 @@ def main(argv=None) -> dict:
     if args.raw_params and state.ema_params is not None:
         source = state.model          # the raw weights of the same run
         log.log("eval_params", source="raw")
-    res = run_eval(cfg, source, loader, max_batches=args.max_batches,
-                   num_scenes=len(loader.dataset), per_class=args.per_class,
-                   per_scene=args.per_scene)
+    with Loader(cfg, args.split, train=False) as loader:
+        res = run_eval(cfg, source, loader, max_batches=args.max_batches,
+                       num_scenes=len(loader.dataset), per_class=args.per_class,
+                       per_scene=args.per_scene)
     log.log("eval", **res)
     return res
 

@@ -11,8 +11,10 @@ of ``train.checkpoint_dir`` (``--step N`` for another, ``--best`` for the
 best-mAP weights training retains in ``<checkpoint_dir>_best``), else the
 port's own seeded init (``train.seed``). With ``train.ema > 0`` the EMA
 weights are run. They are stored in the train form and converted to the
-eval form where the two tail boundaries differ. Masks come to the host as
-the eval step's packed bits, never as the f32 logits.
+eval form where the two tail boundaries differ. Scenes come through the
+eval ``Loader`` (``data/pipeline.py``; the host voxelizer with
+``data.host_voxelize``) and pinned copies to the card. Masks come to the
+host as the eval step's packed bits, never as the f32 logits.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from .config import load_config
-from .data.pipeline import EvalBatches
+from .data.ply import write_ply
+from .data.pipeline import Loader, device_batches
 from .train import checkpoint as CK
 from .train import loop as TL
 from .train.evaluate import fetch_eval_outputs, postprocess_scene
@@ -85,17 +88,6 @@ def scene_result(out: Dict[str, np.ndarray], b: int, num_classes: int):
     return inst, scores, pred_cls, pmask
 
 
-def write_ply(path, points, colors):
-    with open(path, "w") as f:
-        f.write("ply\nformat ascii 1.0\n")
-        f.write(f"element vertex {len(points)}\n")
-        f.write("property float x\nproperty float y\nproperty float z\n")
-        f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
-        f.write("end_header\n")
-        for p, c in zip(points, colors):
-            f.write(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f} {c[0]} {c[1]} {c[2]}\n")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default=None)
@@ -128,31 +120,34 @@ def main(argv=None):
 
     palette = np.random.default_rng(0).integers(40, 255, (256, 3))
     done = 0
-    for batch in EvalBatches(cfg, args.split):
-        if done >= args.num_scenes:
-            break
-        out = fetch_eval_outputs(TL.eval_step(cfg, model, TL.to_device(batch, device)))
-        for b in range(cfg.data.batch_size):
+    with Loader(cfg, args.split, train=False) as loader:
+        for batch, dev in device_batches(loader, device, TL.BATCH_KEYS):
             if done >= args.num_scenes:
                 break
-            inst_label, scores, pred_cls, pmask = scene_result(
-                out, b, cfg.model.num_classes)
-            pts, valid = batch["points"][b], batch["valid"][b]
-            np.savez(
-                os.path.join(args.out_dir, f"scene{done:04d}.npz"),
-                points=pts[valid], instance=inst_label[valid],
-                scores=scores, classes=pred_cls, proposal_valid=pmask,
-            )
-            if args.ply:
-                colors = np.where(
-                    inst_label[valid, None] >= 0,
-                    palette[inst_label[valid] % 256], 128,
-                ).astype(np.uint8)
-                write_ply(os.path.join(args.out_dir, f"scene{done:04d}.ply"),
-                          pts[valid], colors)
-            print(f"scene {done}: {int(pmask.sum())} instances, "
-                  f"{(inst_label >= 0).sum()} labeled points")
-            done += 1
+            out = fetch_eval_outputs(TL.eval_step(cfg, model, dev))
+            for b in range(cfg.data.batch_size):
+                if done >= args.num_scenes:
+                    break
+                inst_label, scores, pred_cls, pmask = scene_result(
+                    out, b, cfg.model.num_classes)
+                pts, valid = batch["points"][b], batch["valid"][b]
+                np.savez(
+                    os.path.join(args.out_dir, f"scene{done:04d}.npz"),
+                    points=pts[valid], instance=inst_label[valid],
+                    scores=scores, classes=pred_cls, proposal_valid=pmask,
+                )
+                if args.ply:
+                    colors = np.where(
+                        inst_label[valid, None] >= 0,
+                        palette[inst_label[valid] % 256], 128,
+                    ).astype(np.uint8)
+                    p = pts[valid]
+                    write_ply(os.path.join(args.out_dir, f"scene{done:04d}.ply"),
+                              {"x": p[:, 0], "y": p[:, 1], "z": p[:, 2], "red": colors[:, 0],
+                               "green": colors[:, 1], "blue": colors[:, 2]}, ascii=True)
+                print(f"scene {done}: {int(pmask.sum())} instances, "
+                      f"{(inst_label >= 0).sum()} labeled points")
+                done += 1
 
 
 if __name__ == "__main__":

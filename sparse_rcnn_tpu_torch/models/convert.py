@@ -16,6 +16,10 @@ boundary move in or out of ``dense_tail.`` and conv kernels change layout:
   * 1×1 projection    [1, Cin, Cout]   ⇄  ``Conv3d`` [Cout, Cin, 1, 1, 1];
   * BN parameters and running statistics: renamed only.
 
+A pooling downsample's 1×1 projection ``down{s}_proj`` has no spatial
+kernel, so a scale that has one cannot move into the tail: :func:`to_dense`
+refuses it with the JAX converter's error.
+
 Every transform is exact and invertible; ``tests/test_torch_convert.py``
 holds it against the JAX converter through ``from_flax``.
 """
@@ -105,8 +109,14 @@ def to_dense(state: Dict[str, torch.Tensor], s0: int) -> Dict[str, torch.Tensor]
         raise ValueError("to_dense takes a fully sparse state: call to_sparse first")
     out = {}
     for k, v in state.items():
-        s = _scale_of(k.split(".")[0])
+        module = k.split(".")[0]
+        s = _scale_of(module)
         if s is not None and s >= s0:
+            if module == f"down{s}_proj":
+                raise ValueError(
+                    f"pooling downsample (down{s}_proj) has no spatial kernel — "
+                    "scales crossing the dense-tail boundary must use "
+                    "backbone.downsample='conv' to be convertible")
             k, v = _to_dense(k, v)
         out[k] = v
     return out

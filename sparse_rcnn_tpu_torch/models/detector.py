@@ -51,8 +51,10 @@ class SparseRCNN(nn.Module):
 
     def forward(self, feats: torch.Tensor, scales: List[ScaleSet],
                 gt_boxes: Optional[torch.Tensor] = None,
-                gt_boxes_valid: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        outs = self.backbone(feats, scales)
+                gt_boxes_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``generator``: the backbone's dropout masks in training mode."""
+        outs = self.backbone(feats, scales, generator)
         return self.heads(outs, scales, gt_boxes, gt_boxes_valid)
 
     def heads(self, outs: List[torch.Tensor], scales: List[ScaleSet],

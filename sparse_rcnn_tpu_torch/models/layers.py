@@ -170,13 +170,39 @@ class Dense(nn.Linear):
     """flax ``nn.Dense``: f32 parameters, the product in ``dtype``."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, features)
+                 dtype: torch.dtype = torch.float32, use_bias: bool = True):
+        super().__init__(in_features, features, bias=use_bias)
         self.dtype = dtype
 
     def forward(self, x):
         d = self.dtype
-        return nn.functional.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+        bias = None if self.bias is None else self.bias.to(d)
+        return nn.functional.linear(x.to(d), self.weight.to(d), bias)
+
+
+def sparse_dropout(feats: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """``where(keep, feats / (1 - rate), 0)`` in feats' dtype. The division
+    is the product with the reciprocal of ``1 - rate`` rounded to that
+    dtype: what XLA compiles JAX's division by a constant into, in the
+    jitted train step."""
+    scale = float(torch.tensor(1.0 - rate, dtype=feats.dtype).reciprocal())
+    return torch.where(keep, feats * scale, feats.new_zeros(())).to(feats.dtype)
+
+
+class SparseDropout(nn.Module):
+    """Feature dropout (port of ``SparseDropout``); inert when not training.
+    The keep mask, each entry kept with probability ``1 - rate``, is drawn
+    from the ``generator`` given (the torch default one without)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, feats, generator=None):
+        if self.rate <= 0.0 or not self.training:
+            return feats
+        u = torch.rand(feats.shape, generator=generator, device=feats.device)
+        return sparse_dropout(feats, u < 1.0 - self.rate, self.rate)
 
 
 class MLP(nn.Module):

@@ -16,8 +16,13 @@ need site sets but no rulebooks. Grids keep the JAX package's layout
 [B, X, Y, Z, C]; a conv sees them as NCDHW views in channels-last memory.
 
 With ``remat`` every residual block is recomputed in the backward
-(:func:`.layers.remat`). Not ported yet, and refused at construction: the
-pooling downsamples and feature dropout (ROADMAP §1 item 15).
+(:func:`.layers.remat`). ``downsample`` ``maxpool`` or ``avgpool`` replaces a
+sparse scale's down conv by a pool over each coarse site's children
+(:mod:`..ops.pooling`) and a bias-free 1×1 projection ``down{s}_proj``; the
+dense tail always downsamples by strided convs. ``dropout`` adds
+:class:`.layers.SparseDropout` after each sparse encoder and decoder block
+stack (``enc{s}_drop``, ``dec{s}_drop``), drawing from the generator the
+forward is given.
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import pooling as pool_ops
 from ..ops.hierarchy import ScaleSet
-from .layers import MaskedBatchNorm, SparseBasicBlock, SparseConv, SubMConv3d, remat
+from .layers import (Dense, MaskedBatchNorm, SparseBasicBlock, SparseConv, SparseDropout,
+                     SubMConv3d, remat)
 
 
 def _grid_slots(coords, nvalid, extent):
@@ -235,14 +242,10 @@ class SparseUNet(nn.Module):
                  grid_extent: Optional[Sequence[int]] = None, remat: bool = False,
                  downsample: str = "conv", dropout: float = 0.0):
         super().__init__()
-        if downsample != "conv":
-            raise NotImplementedError(
-                f"backbone.downsample={downsample!r}: the pooling downsamples "
-                "(ops/pooling.py) are not ported yet — ROADMAP §1 item 15")
-        if dropout > 0:
-            raise NotImplementedError(
-                "backbone.dropout: SparseDropout is not ported yet (a train-only "
-                "layer) — ROADMAP §1 item 15")
+        if downsample not in ("conv", "maxpool", "avgpool"):
+            raise ValueError(f"backbone.downsample={downsample!r}")
+        self.downsample = downsample
+        self.dropout = dropout
         self.widths = tuple(widths)
         self.blocks_per_scale = blocks_per_scale
         self.remat = remat
@@ -259,10 +262,16 @@ class SparseUNet(nn.Module):
             for b in range(blocks_per_scale):
                 self.add_module(f"enc{s}_block{b}", SparseBasicBlock(
                     cin, self.widths[s], kernel_size, dtype))
+            if dropout > 0:
+                self.add_module(f"enc{s}_drop", SparseDropout(dropout))
             if s < ns - 1:
                 self.add_module(f"down{s}_bn", MaskedBatchNorm(cin, dtype=dtype))
-                self.add_module(f"down{s}_conv", SparseConv(
-                    cin, self.widths[s + 1], 8, dtype=dtype))
+                if downsample == "conv":
+                    self.add_module(f"down{s}_conv", SparseConv(
+                        cin, self.widths[s + 1], 8, dtype=dtype))
+                else:
+                    self.add_module(f"down{s}_proj", Dense(
+                        cin, self.widths[s + 1], dtype, use_bias=False))
         if self.n_sparse < ns:
             self.dense_tail = DenseTail(self.widths, self.n_sparse, blocks_per_scale,
                                         dtype, remat)
@@ -276,12 +285,16 @@ class SparseUNet(nn.Module):
                 self.add_module(f"dec{s}_block{b}", SparseBasicBlock(
                     cin, self.widths[s], kernel_size, dtype))
                 cin = self.widths[s]
+            if dropout > 0:
+                self.add_module(f"dec{s}_drop", SparseDropout(dropout))
 
     def _block(self, name, x, idx, mask):
         block = getattr(self, name)
         return remat(block, x, idx, mask) if self.remat else block(x, idx, mask)
 
-    def forward(self, feats: torch.Tensor, scales: List[ScaleSet]) -> List[torch.Tensor]:
+    def forward(self, feats: torch.Tensor, scales: List[ScaleSet],
+                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+        """``generator``: the dropout masks' source in training mode."""
         ns, n_sparse = len(self.widths), self.n_sparse
         if len(scales) != ns:
             raise ValueError(f"{len(scales)} scales for {ns} widths")
@@ -291,11 +304,20 @@ class SparseUNet(nn.Module):
         for s in range(n_sparse):
             for b in range(self.blocks_per_scale):
                 x = self._block(f"enc{s}_block{b}", x, scales[s].subm_idx, masks[s])
+            if self.dropout > 0:
+                x = getattr(self, f"enc{s}_drop")(x, generator)
             skips.append(x)
             if s < ns - 1:
                 x = torch.relu(getattr(self, f"down{s}_bn")(x, masks[s]))
-                # t(down) == up
-                x = getattr(self, f"down{s}_conv")(x, scales[s].down_idx, scales[s].up_idx)
+                if self.downsample == "conv":
+                    # t(down) == up
+                    x = getattr(self, f"down{s}_conv")(x, scales[s].down_idx,
+                                                       scales[s].up_idx)
+                else:
+                    pool = (pool_ops.max_pool if self.downsample == "maxpool"
+                            else pool_ops.avg_pool)
+                    x = getattr(self, f"down{s}_proj")(pool(x, scales[s].down_idx))
+                    x = x * masks[s + 1][..., None].to(x.dtype)
 
         outputs = [None] * ns
         if n_sparse < ns:
@@ -314,5 +336,7 @@ class SparseUNet(nn.Module):
             x = torch.cat([up, skips[s]], dim=-1)
             for b in range(self.blocks_per_scale):
                 x = self._block(f"dec{s}_block{b}", x, scales[s].subm_idx, masks[s])
+            if self.dropout > 0:
+                x = getattr(self, f"dec{s}_drop")(x, generator)
             outputs[s] = x
         return outputs

@@ -54,8 +54,11 @@ def row_mask(nvalid: torch.Tensor, capacity: int) -> torch.Tensor:
 
 
 def make_sparse_tensor(coords: torch.Tensor, feats: torch.Tensor,
-                       nvalid: torch.Tensor, stride: int = 1) -> SparseTensor:
-    """Build a SparseTensor, sorting rows lexicographically per scene.
+                       nvalid: torch.Tensor, stride: int = 1,
+                       assume_sorted: bool = False) -> SparseTensor:
+    """Build a SparseTensor, sorting rows lexicographically per scene
+    (``assume_sorted``: the live rows are sorted already, as the host
+    voxelizer's are).
 
     Padding rows may hold anything; they are rewritten to the sentinel
     coordinate and zero features.
@@ -63,6 +66,8 @@ def make_sparse_tensor(coords: torch.Tensor, feats: torch.Tensor,
     mask = row_mask(nvalid, coords.shape[1])
     coords = torch.where(mask[..., None], coords, SENTINEL_COORD)
     feats = feats * mask[..., None].to(feats.dtype)
+    if assume_sorted:
+        return SparseTensor(coords=coords, feats=feats, nvalid=nvalid, stride=stride)
     keys = coord_ops.pack_coords(coords, mask)
     order = torch.sort(keys, dim=1, stable=True).indices
     coords = torch.gather(coords, 1, order[..., None].expand_as(coords))

@@ -6,8 +6,10 @@
 Runs on CUDA unless ``--device cpu``. From the port's seeded init
 (``train.seed``), or with ``--resume`` from the latest checkpoint of
 ``train.checkpoint_dir``, it takes steps up to ``train.total_steps`` on the
-single-worker train stream (``data/pipeline.py``; it restarts at
-``train.seed`` on a resume, as the JAX trainer's does). jsonl lines, also
+train ``Loader`` (``data/pipeline.py``: ``data.num_workers`` threads taken in
+turn, ``data.prefetch`` batches ahead, the C++ host voxelizer with
+``data.host_voxelize``, pinned non-blocking copies to the card; it restarts
+at ``train.seed`` on a resume, as the JAX trainer's does). jsonl lines, also
 appended to ``--log-file`` and mirrored to ``--tensorboard``:
 
 - ``train`` every ``train.log_every`` steps and at the last: loss parts,
@@ -18,7 +20,10 @@ appended to ``--log-file`` and mirrored to ``--tensorboard``:
   mAP@0.5 saves the state into ``<checkpoint_dir>_best`` with its
   ``best.json``, seeded from that file on a resume (``checkpoint_best``);
 - ``checkpoint`` every ``train.checkpoint_every`` steps; a last save at the
-  end.
+  end;
+- ``loader`` at the end: the seconds the steps waited for a batch
+  (``wait_s``), ``batches_out``, and the workers' seconds in the host
+  voxelizer (``voxelize_s``, ``scenes_voxelized``).
 
 A ``trainer.pid`` file in ``train.checkpoint_dir`` refuses a second live
 trainer on the same directory; a stale one is reclaimed. On the card, TF32
@@ -36,7 +41,7 @@ import time
 import torch
 
 from ..config import Config, load_config
-from ..data.pipeline import EvalBatches, TrainStream
+from ..data.pipeline import Loader, device_batches
 from ..infer import parse_overrides, setup_device
 from ..utils.logging import JsonlLogger
 from . import checkpoint as CK
@@ -77,15 +82,15 @@ def evaluate(cfg: Config, state: TL.TrainState, log: JsonlLogger) -> dict:
     """The in-training eval: the leading ``min(eval_scenes, n_val)`` val
     scenes, the same ones at every eval point; with EMA also the raw
     weights (``eval_raw``). Returns the logged ``eval`` dict."""
-    loader = EvalBatches(cfg, "val")
-    n_val = len(loader.dataset)
-    n_eval = min(cfg.train.eval_scenes or n_val, n_val)
-    mb = -(-n_eval // cfg.data.batch_size)
-    res = run_eval(cfg, state, loader, max_batches=mb, num_scenes=n_eval)
+    with Loader(cfg, "val", train=False) as loader:
+        n_val = len(loader.dataset)
+        n_eval = min(cfg.train.eval_scenes or n_val, n_val)
+        mb = -(-n_eval // cfg.data.batch_size)
+        res = run_eval(cfg, state, loader, max_batches=mb, num_scenes=n_eval)
     log.log("eval", step=state.step, **res)
     if cfg.train.ema > 0 and state.ema_params is not None:
-        raw = run_eval(cfg, state.model, EvalBatches(cfg, "val"), max_batches=mb,
-                       num_scenes=n_eval)
+        with Loader(cfg, "val", train=False) as loader:
+            raw = run_eval(cfg, state.model, loader, max_batches=mb, num_scenes=n_eval)
         log.log("eval_raw", step=state.step, **raw)
     return res
 
@@ -121,29 +126,32 @@ def train(cfg: Config, device: torch.device, args) -> TL.TrainState:
     best_mgr = CK.make_manager(CK.best_dir(ckpt_dir), keep=1)
     # seeded from the sidecar: a worse eval after a resume keeps the best
     best_map = CK.read_best_score(ckpt_dir)
-    stream = TrainStream(cfg, seed=cfg.train.seed)
     t_last, step_last = time.perf_counter(), state.step
-    while state.step < cfg.train.total_steps:
-        batch = TL.to_device(next(stream), device, TL.TRAIN_KEYS)
-        state, metrics = TL.train_step(cfg, state, batch)
-        step = state.step
-        if step % cfg.train.log_every == 0 or step == cfg.train.total_steps:
-            metrics = {k: float(v) for k, v in metrics.items()}    # waits for the card
-            now = time.perf_counter()
-            sps = (step - step_last) * cfg.data.batch_size / (now - t_last)
-            t_last, step_last = now, step
-            log.log("train", step=step, scenes_per_sec=round(sps, 2), **metrics)
-        if step % cfg.train.eval_every == 0:
-            res = evaluate(cfg, state, log)
-            score = res.get("mAP@0.5", res.get("mAP@0.25"))
-            if score is not None and score > best_map:
-                best_map = score
-                CK.save(best_mgr, state)
-                CK.write_best_score(ckpt_dir, score, step)
-                log.log("checkpoint_best", step=step, map50=round(float(score), 4))
-        if step % cfg.train.checkpoint_every == 0:
-            CK.save(mgr, state)
-            log.log("checkpoint", step=step)
+    with Loader(cfg, "train", seed=cfg.train.seed) as loader:
+        stream = device_batches(loader, device, TL.TRAIN_KEYS)
+        while state.step < cfg.train.total_steps:
+            _, batch = next(stream)
+            state, metrics = TL.train_step(cfg, state, batch)
+            step = state.step
+            if step % cfg.train.log_every == 0 or step == cfg.train.total_steps:
+                metrics = {k: float(v) for k, v in metrics.items()}    # waits for the card
+                now = time.perf_counter()
+                sps = (step - step_last) * cfg.data.batch_size / (now - t_last)
+                t_last, step_last = now, step
+                log.log("train", step=step, scenes_per_sec=round(sps, 2), **metrics)
+            if step % cfg.train.eval_every == 0:
+                res = evaluate(cfg, state, log)
+                score = res.get("mAP@0.5", res.get("mAP@0.25"))
+                if score is not None and score > best_map:
+                    best_map = score
+                    CK.save(best_mgr, state)
+                    CK.write_best_score(ckpt_dir, score, step)
+                    log.log("checkpoint_best", step=step, map50=round(float(score), 4))
+            if step % cfg.train.checkpoint_every == 0:
+                CK.save(mgr, state)
+                log.log("checkpoint", step=step)
+        log.log("loader", wait_s=loader.wait_s, batches_out=loader.batches_out,
+                voxelize_s=loader.voxelize_s, scenes_voxelized=loader.scenes_voxelized)
     CK.save(mgr, state)
     log.log("done", step=state.step)
     log.close()

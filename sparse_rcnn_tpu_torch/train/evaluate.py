@@ -5,6 +5,7 @@ scoring), with the semantic head's mIoU when it is on."""
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, Optional
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..data.pipeline import device_batches
 from ..utils.metrics import InstanceAPEvaluator, SemanticMIoUEvaluator
 from . import loop as TL
 
@@ -76,11 +78,11 @@ def postprocess_scene(out: Dict[str, np.ndarray], b: int, num_classes: int,
 def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
              num_scenes: Optional[int] = None, per_class: bool = False,
              per_scene: bool = False) -> Dict[str, float]:
-    """Score ``loader``'s batches (dicts of numpy arrays, as
-    :class:`~..data.pipeline.EvalBatches` yields them) with ``source``, a
-    model or a :class:`~.loop.TrainState` (its EMA weights when
-    ``train.ema > 0``; see :func:`~.loop.eval_model`), on the device of its
-    parameters.
+    """Score ``loader``'s batches (dicts of numpy arrays, as an eval
+    :class:`~..data.pipeline.Loader` yields them) with ``source``, a model or
+    a :class:`~.loop.TrainState` (its EMA weights when ``train.ema > 0``; see
+    :func:`~.loop.eval_model`), on the device of its parameters, where the
+    batches go by :func:`~..data.pipeline.device_batches`.
 
     ``num_scenes`` (the split's size; by default ``len(loader.dataset)``)
     makes the wrap-padded tail of the last batch score each scene exactly
@@ -109,11 +111,10 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
     seen = 0
     semantic = False
     t_dev = t_fetch = t_host = 0.0
-    for bi, batch in enumerate(loader):
-        if max_batches is not None and bi >= max_batches:
-            break
+    batches = loader if max_batches is None else itertools.islice(loader, max_batches)
+    for bi, (batch, dev) in enumerate(device_batches(batches, device, TL.BATCH_KEYS)):
         t0 = time.perf_counter()
-        raw = TL.eval_step(cfg, model, TL.to_device(batch, device))
+        raw = TL.eval_step(cfg, model, dev)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t1 = time.perf_counter()

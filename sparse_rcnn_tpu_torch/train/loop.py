@@ -28,6 +28,7 @@ import torch
 
 from ..config import Config
 from ..data.gt import build_scene_gt
+from ..data.pipeline import device_keys
 from ..models import layers as Lyr
 from ..models import losses as L
 from ..models.convert import convert_variables
@@ -35,9 +36,10 @@ from ..models.detector import SparseRCNN, paint_instance_masks
 from ..models.targets import roi_targets, rpn_targets
 from ..ops import hierarchy as H
 from ..ops import voxelize as V
+from ..sparse import make_sparse_tensor
 
-_BATCH_KEYS = ("points", "feats", "valid")
-TRAIN_KEYS = _BATCH_KEYS + ("point_instance", "point_semantic")
+BATCH_KEYS = ("points", "feats", "valid")
+TRAIN_KEYS = BATCH_KEYS + ("point_instance", "point_semantic")
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -61,14 +63,17 @@ def build_model(cfg: Config, device="cuda",
 
 
 def to_device(batch: Dict[str, np.ndarray], device,
-              keys=_BATCH_KEYS) -> Dict[str, torch.Tensor]:
+              keys=BATCH_KEYS) -> Dict[str, torch.Tensor]:
     """The arrays the device path reads (``keys``; :data:`TRAIN_KEYS` adds
-    the point labels that GT is built from), as tensors on ``device``."""
-    return {k: torch.as_tensor(batch[k], device=device) for k in keys}
+    the point labels that GT is built from; any host-voxelized tables), as
+    tensors on ``device``."""
+    return {k: torch.as_tensor(batch[k], device=device) for k in device_keys(batch, keys)}
 
 
 def prepare_inputs(cfg: Config, batch: Dict[str, torch.Tensor]):
-    """Device-side front half: voxelize → rebase → hierarchy → GT.
+    """Device-side front half: voxelize → rebase → hierarchy → GT. A batch
+    that carries the host voxelizer's tables (``data/pipeline.py::
+    VOXEL_KEYS``) skips the voxelize: they are the same tables.
 
     Returns (SparseTensor, p2v [B, N], scales, gt, aux). ``gt`` is a
     :class:`~..models.targets.SceneGT` when the batch carries the point
@@ -77,9 +82,14 @@ def prepare_inputs(cfg: Config, batch: Dict[str, torch.Tensor]):
     dense tail also ``dense_tail_oob``: the live sites of its first scale
     that fall outside the grid and are dropped from it.
     """
-    st, p2v, ovf = V.voxelize_batch(
-        batch["points"], batch["feats"], batch["valid"], cfg.data.voxel_size,
-        cfg.data.voxel_capacity)
+    if "voxel_coords" in batch:
+        st = make_sparse_tensor(batch["voxel_coords"], batch["voxel_feats"],
+                                batch["voxel_nvalid"], assume_sorted=True)
+        p2v, ovf = batch["p2v"], batch["voxel_overflow"]
+    else:
+        st, p2v, ovf = V.voxelize_batch(
+            batch["points"], batch["feats"], batch["valid"], cfg.data.voxel_size,
+            cfg.data.voxel_capacity)
     # integer per-scene rebase to non-negative coords: exact, and the frame
     # the dense tail and the GT boxes use
     st, base = V.rebase_coords(st, margin=2)
@@ -416,15 +426,27 @@ def deterministic_on_cpu(device):
         torch.use_deterministic_algorithms(was, warn_only=warn_only)
 
 
-def loss_and_grads(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor]):
-    """Forward in training mode (BN batch statistics, GT injection), losses
-    and the gradients of every parameter (zeros where none flows), bit-stable
-    from run to run on the card and on the CPU (:func:`deterministic_on_cpu`).
-    Returns (total, parts, grads, aux); the BN running statistics move."""
+def dropout_generator(cfg: Config, step: int, device) -> torch.Generator:
+    """The generator of step ``step``'s dropout masks, on ``device``, seeded
+    by (``train.seed``, ``step``): a resumed run draws the masks of an
+    unbroken one, with no generator state in the checkpoint. (JAX splits a
+    key carried in its state; the masks differ from JAX's, not their law.)"""
+    seed = int(np.random.SeedSequence([cfg.train.seed, step]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def loss_and_grads(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
+    """Forward in training mode (BN batch statistics, GT injection, dropout
+    masks from ``generator``), losses and the gradients of every parameter
+    (zeros where none flows), bit-stable from run to run on the card and on
+    the CPU (:func:`deterministic_on_cpu`). Returns (total, parts, grads,
+    aux); the BN running statistics move."""
     cfg = train_cfg(cfg)
     st, _, scales, gt, aux = prepare_inputs(cfg, batch)
     model.train()
-    out = model(st.feats, scales, gt_boxes=gt.boxes, gt_boxes_valid=gt.valid)
+    out = model(st.feats, scales, gt_boxes=gt.boxes, gt_boxes_valid=gt.valid,
+                generator=generator)
     total, parts = compute_losses(cfg, out, scales, gt, st.row_mask)
     params = list(model.parameters())
     with deterministic_on_cpu(total.device):
@@ -436,9 +458,13 @@ def loss_and_grads(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor
 def train_step(cfg: Config, state: TrainState, batch: Dict[str, torch.Tensor]):
     """One optimization step, in place. Returns (state, metrics): the loss
     parts, ``total``, ``grad_norm`` (of the raw gradients) and the overflow
-    counters, as tensors on the batch's device."""
+    counters, as tensors on the batch's device. With ``backbone.dropout``
+    the masks come from :func:`dropout_generator` of ``state.step``."""
     cfg = train_cfg(cfg)
-    total, parts, grads, aux = loss_and_grads(cfg, state.model, batch)
+    generator = None
+    if cfg.model.backbone.dropout > 0:
+        generator = dropout_generator(cfg, state.step, batch["points"].device)
+    total, parts, grads, aux = loss_and_grads(cfg, state.model, batch, generator)
     params = list(state.model.parameters())
     metrics = dict(parts)
     metrics.update(aux)

@@ -131,9 +131,12 @@ def test_masked_batchnorm_train_normalisation():
 
 
 def test_unsupported_backbones_raise():
-    """Pooling and dropout are not ported yet; a dense tail needs its grid."""
-    for kw in ({"downsample": "maxpool"}, {"dropout": 0.1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SparseUNet(3, WIDTHS, **kw)
+    """A downsample the JAX package does not know is refused (pooling and
+    dropout build, ``tests/test_torch_pooling.py``); a dense tail needs its
+    grid."""
+    with pytest.raises(ValueError, match="downsample"):
+        SparseUNet(3, WIDTHS, downsample="stridedpool")
+    for kw in ({"downsample": "maxpool"}, {"downsample": "avgpool"}, {"dropout": 0.1}):
+        SparseUNet(3, WIDTHS, **kw)
     with pytest.raises(ValueError, match="grid_extent"):
         SparseUNet(3, WIDTHS, dense_from_scale=1)

@@ -33,7 +33,7 @@ from sparse_rcnn_tpu.train import evaluate as JE
 from sparse_rcnn_tpu.train import loop as JTL
 from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.data import synthetic
-from sparse_rcnn_tpu_torch.data.pipeline import EvalBatches
+from sparse_rcnn_tpu_torch.data.pipeline import Loader
 from sparse_rcnn_tpu_torch.infer import to_host
 from sparse_rcnn_tpu_torch.train import checkpoint as CK
 from sparse_rcnn_tpu_torch.train import evaluate as E
@@ -82,19 +82,21 @@ def setup(tmp_path_factory):
     EX.export(mgr, jstate, npz)
     cfg = load_config(overrides=EVAL_OVERRIDES)
     state = CK.import_flat(cfg, npz, "cpu")
-    batches = list(EvalBatches(cfg, "val"))
+    with Loader(cfg, "val", train=False) as loader:
+        batches = list(loader)
     return cfg, state, jstate, JTL.make_eval_step(jcfg), batches
 
 
 def test_run_eval_matches_jax(setup):
     cfg, state, jstate, jstep, batches = setup
-    assert len(batches) == 2 and len(EvalBatches(cfg, "val")) == 2
+    assert len(batches) == 2 and len(Loader(cfg, "val", train=False, threads=False)) == 2
     np.testing.assert_array_equal(batches[1]["points"][1], batches[0]["points"][0])
     jres = JE.run_eval(cfg, jstate, [{k: jnp.asarray(v) for k, v in b.items()}
                                      for b in batches],
                        eval_step=jstep, num_scenes=3, per_class=True, per_scene=True)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
-    res = E.run_eval(cfg, state, EvalBatches(cfg, "val"), per_class=True, per_scene=True)
+    with Loader(cfg, "val", train=False) as loader:
+        res = E.run_eval(cfg, state, loader, per_class=True, per_scene=True)
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, before[k]), k          # the eval leaves the model as it is
     assert sorted(res) == sorted(jres)

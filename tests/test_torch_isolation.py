@@ -1,4 +1,5 @@
-"""The port stands alone: importing every module of ``sparse_rcnn_tpu_torch``,
+"""The port stands alone: importing every module of ``sparse_rcnn_tpu_torch``
+(the data layer, its C++ host core's binding and the pooling ops included),
 ``chip_smoke.py``, the on-card test file and the port's benchmark scripts loads
 neither jax, orbax nor anything of ``sparse_rcnn_tpu`` (checked in a fresh
 interpreter),
@@ -24,7 +25,14 @@ need = {pkg.__name__ + "." + m for m in (
     "train.__main__", "train.loop", "data.gt", "data.augment", "data.pipeline",
     "models.targets", "models.losses", "models.convert", "models.unet", "models.layers",
     "ops.hierarchy", "ops.rulebook", "eval", "utils.metrics", "utils.logging",
-    "train.checkpoint", "train.evaluate")}
+    "train.checkpoint", "train.evaluate", "data.ply", "data.datasets", "native",
+    "ops.pooling")}
+from sparse_rcnn_tpu_torch.data.datasets import S3DISDataset, ScanNetDataset, SemanticKITTIDataset
+from sparse_rcnn_tpu_torch.data.pipeline import Loader, device_batches, host_voxelize_scene
+from sparse_rcnn_tpu_torch.data.ply import read_ply, write_ply
+from sparse_rcnn_tpu_torch.models.layers import SparseDropout, sparse_dropout
+from sparse_rcnn_tpu_torch.native import subm_rulebook, voxelize_scene
+from sparse_rcnn_tpu_torch.ops.pooling import avg_pool, global_pool, max_pool
 from sparse_rcnn_tpu_torch.models.convert import convert_variables
 from sparse_rcnn_tpu_torch.models.unet import DenseTail, gather_from_grid, scatter_to_grid
 from sparse_rcnn_tpu_torch.models.layers import remat

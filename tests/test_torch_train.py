@@ -29,7 +29,7 @@ from sparse_rcnn_tpu.train import loop as JTL
 from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.data import synthetic
 from sparse_rcnn_tpu_torch.data.gt import build_scene_gt
-from sparse_rcnn_tpu_torch.data.pipeline import TrainStream
+from sparse_rcnn_tpu_torch.data.pipeline import Loader as TorchLoader
 from sparse_rcnn_tpu_torch.models import targets as PT
 from sparse_rcnn_tpu_torch.models.transfer import from_flax
 from sparse_rcnn_tpu_torch.ops import voxelize as V
@@ -235,8 +235,9 @@ def test_loss_parts_and_grads_match_jax(step_parts, weights):
 
 
 def test_train_stream_matches_jax_loader():
-    """The first 2 batches of the port's train stream against JAX
-    ``Loader(..., num_workers=1)`` with the same seed (augmentation on)."""
+    """The first 2 batches of the port's train Loader with one worker (in
+    the caller's thread) against JAX ``Loader(..., num_workers=1)`` with the
+    same seed (augmentation on)."""
     ov = {**OVERRIDES, "data": {**OVERRIDES["data"], "num_workers": 1}}
     loader = Loader(jax_load_config(overrides=ov), "train", train=True, seed=5)
     try:
@@ -244,7 +245,7 @@ def test_train_stream_matches_jax_loader():
         want = [jax.device_get(next(it)) for _ in range(2)]
     finally:
         loader.close()
-    stream = TrainStream(load_config(overrides=ov), seed=5)
+    stream = TorchLoader(load_config(overrides=ov), seed=5, threads=False)
     for i, w in enumerate(want):
         got = next(stream)
         assert sorted(got) == sorted(w)
@@ -254,7 +255,8 @@ def test_train_stream_matches_jax_loader():
 
 def test_train_cfg_refuses_dense_tail():
     """``train_cfg`` swaps in the train boundary, as JAX ``train_cfg`` does;
-    a backbone the port does not run yet (pooling) is still refused."""
+    a pooling backbone builds, with its 1×1 projection in place of the down
+    conv."""
     bb = {"widths": [8, 16, 24], "dense_from_scale": 1, "grid_extent": [64, 64, 32]}
     cfg = load_config(overrides={"model": {"backbone": bb}})
     assert TL.train_cfg(cfg) is cfg
@@ -265,6 +267,6 @@ def test_train_cfg_refuses_dense_tail():
         assert got.model.backbone.dense_from_scale == want.model.backbone.dense_from_scale
     assert TL.train_cfg(TL.train_cfg(load_config(overrides=per_mode))).model.backbone \
         .dense_from_scale == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.build_model(load_config(overrides={"model": {"backbone": {
-            "widths": [8, 16], "downsample": "maxpool"}}}), "cpu")
+    pooled = TL.build_model(load_config(overrides={"model": {"backbone": {
+        "widths": [8, 16], "downsample": "maxpool"}}}), "cpu")
+    assert hasattr(pooled.backbone, "down0_proj") and not hasattr(pooled.backbone, "down0_conv")
