@@ -89,10 +89,30 @@ nonzero:
    step card against CPU as in phase 4, every kernel call of one pooled
    forward and train step against its plain version. Launches of every
    path are checked; figures in a ``data_layer`` JSON line with the card;
-11. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
+11. data parallel on config 5's path (``configs/config5_v5e8_dp.yaml``:
+   widths 32-160, bf16, dense tail 2 for eval and 3 for train, 262144
+   points, host voxelize) through the ScanNet reader on phase 10's files,
+   cut to one card, each world started by ``python -m
+   torch.distributed.run`` under a timeout (a rank that fails fails the
+   script): (a) a world of 1 on NCCL, ``train.main`` for 3 steps with an
+   eval and a checkpoint, then a data-parallel step bit-equal
+   (``torch.equal``) to ``TL.train_step`` from the same state on the same
+   batch, both timed, with the all-reduces and bytes of a step; (b) a world
+   of 2 on gloo sharing the card (NCCL refuses two ranks on one GPU),
+   global batch 2: an f32 step against ``TL.train_step`` on the global
+   batch within ``tests/distributed/test_dp.py``'s tolerance, a bf16 one
+   within a stated one, the ranks' states bit-equal, the in-training eval's
+   mAP equal to one process's at the ranks' batch of 1 and the packed masks
+   of a val batch bit-equal to its (one process's batch of 2 recorded), the
+   step timed (two processes on one card, not scaling). Records in
+   ``dp_*.json`` and ``kernels.json``, figures in a ``data_parallel`` JSON
+   line. Alone: ``python3 -c "import chip_smoke as CS; smi =
+   CS.card_info(); CS.build(); CS.phase_data_parallel('chiprun_out/dp',
+   '_chip_smoke_dp', smi)"``;
+12. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
    under ``config1``, config1_pool_dropout's under ``pool_dropout``;
-   launches of every path under ``launches_by_path``), then as the last
-   line ``{"ok": true, "device": {...}}``.
+   launches of every path under ``launches_by_path``, phase 11's ranks
+   too), then as the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
 algorithms, so every f32 comparison holds f32 against f32. Detailed
@@ -106,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import itertools
 import json
 import os
@@ -136,9 +157,12 @@ from sparse_rcnn_tpu_torch.models.transfer import from_flax, unflatten_variables
 from sparse_rcnn_tpu_torch.models.unet import scatter_to_grid
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
 from sparse_rcnn_tpu_torch.ops import voxelize as V
+from sparse_rcnn_tpu_torch.parallel import context as DPC
+from sparse_rcnn_tpu_torch.parallel import data_parallel as DP
 from sparse_rcnn_tpu_torch.train import checkpoint as CK
 from sparse_rcnn_tpu_torch.train import loop as TL
 from sparse_rcnn_tpu_torch.train.evaluate import fetch_eval_outputs, run_eval
+from sparse_rcnn_tpu_torch.utils.logging import JsonlLogger
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -180,6 +204,28 @@ HOST_STEP_RTOL = 1e-4
 # two forms round to bf16 after different sums (dense convs against
 # gathered taps) through up to 16 blocks
 DENSE_SPARSE_BF16 = 5e-2
+
+# phase 11: data parallel on config 5's path. *_SET: extra overrides (none
+# on the card apart from the world-2 workers' cut). f32: losses and
+# parameters with BN statistics to tests/distributed/test_dp.py's
+# tolerance. lr is 0 at step 1 of config 5's warmup, so the parameters
+# hold still and the gradients are compared too, through the first Adam
+# moments, of each tensor's largest entry: 2e-2, since cuDNN picks the
+# dense tail's f32 conv algorithms per batch shape (1 scene a rank, 2 in
+# one process; 8.3e-3 measured on the dense tail's weights, 4.3e-3 on the
+# sparse conv below it). bf16, for the record: losses to DENSE_SPARSE_BF16,
+# BN statistics to 1e-3; its gradients are recorded, not held (the dense
+# tail's deepest BN parameters, with gradients near 7e-5, came out 28 %
+# apart: sums in other orders, each rounded to bf16, through some 20 layers)
+CONFIG5 = os.path.join(ROOT, "configs", "config5_v5e8_dp.yaml")
+C5_SET = []
+C5_WORLD2_SET = ["data.num_workers=4"]
+DP_STEPS = 3
+DP_TIMED = 6                    # warm steps timed of each form
+DP_TIMEOUT_S = 480              # each launcher call
+DP_PARAMS_RTOL = 1e-4
+DP_TOL = {"float32": {"loss_rtol": 1e-5, "params_atol": 1e-5, "grads_rel": 2e-2},
+          "bfloat16": {"loss_rtol": DENSE_SPARSE_BF16, "params_atol": 1e-3}}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
 # flop/s per input type (f32 outside the tensor cores)
@@ -1739,7 +1785,7 @@ def pool_kernels(cfg, model, batch, n_fwd: int) -> dict:
     fwd = [measure_conv(f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}", f, i, w,
                         reps=QUICK_REPS) for f, i, w in calls]
     tb = TL.to_device(batch, DEVICE, TL.TRAIN_KEYS)
-    gen = TL.dropout_generator(cfg, 0, DEVICE)
+    gen = TL.dropout_generators(cfg, 0, DEVICE, range(tb["points"].shape[0]))
     dg = []
     wg = capture(lambda: dg.extend(capture(
         lambda: TL.loss_and_grads(cfg, copy.deepcopy(model), tb, gen), "conv_dgrad")),
@@ -1986,6 +2032,365 @@ def phase_data_layer(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
     return rep
 
 
+# --------------------------------------------------------------------------
+# phase 11: data parallel (config 5's path), in launcher-started ranks
+
+
+def scannet_root(tmp_dir: str) -> str:
+    """The ScanNet files of phase 10 (written here when phase 11 runs alone)."""
+    root = os.path.join(tmp_dir, "data", "scannet")
+    if not os.path.isdir(root):
+        write_datasets(os.path.join(tmp_dir, "data"))
+    return root
+
+
+def c5_config(tmp_dir: str, world: int, extra=()) -> tuple:
+    """Config 5 at full width through the ScanNet reader, cut to ``world``
+    ranks on one card: (config, its ``--set`` list)."""
+    sets = C5_SET + [f"data.data_root={scannet_root(tmp_dir)}", f"data.batch_size={world}",
+                     f"parallel.num_devices={world}", f"data.val_scenes={EVAL_SCENES}",
+                     f"train.eval_scenes={EVAL_SCENES}", *extra]
+    return load_config(CONFIG5, infer.parse_overrides(sets)), sets
+
+
+def digests(state) -> dict:
+    """A hash of the bytes of every tensor of a train state, by name."""
+    import hashlib
+
+    return {k: hashlib.sha1(v.detach().reshape(-1).contiguous().view(torch.uint8).cpu()
+                            .numpy().tobytes()).hexdigest()
+            for k, v in state_tensors(state).items()}
+
+
+def dp_step_record(world, cfg, init, batch) -> tuple:
+    """One data-parallel step from ``init``: (state, metrics, its launches,
+    its all-reduces and their bytes)."""
+    state = TL.init_state(cfg, model=copy.deepcopy(init))
+    step = DP.make_parallel_train_step(cfg, world)
+    torch.cuda.synchronize()
+    reset_counts()
+    DPC.STATS.calls = DPC.STATS.bytes = 0
+    _, m = step(state, batch)
+    torch.cuda.synchronize()
+    return state, m, counts(), (DPC.STATS.calls, DPC.STATS.bytes)
+
+
+def state_errors(got, want) -> dict:
+    """Largest |got - want| beyond rtol 1e-4 · |want| (``assert_allclose``'s
+    form, as a number: within the tolerance when at most 1e-5) over the
+    parameters and BN statistics; and the largest error of the Adam first
+    moments (0.1 × the gradient) relative to each tensor's largest entry,
+    with the five worst tensors: [name, error, largest |gradient|], and
+    relative to the largest entry of all."""
+    ga, wa = state_tensors(got), state_tensors(want)
+    model = max(float(((ga[k] - v).abs() - DP_PARAMS_RTOL * v.abs()).max())
+                for k, v in wa.items() if k.startswith("model."))
+    mu = {k: v for k, v in wa.items() if k.startswith("mu.")}
+    rel = {k: float((ga[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+           for k, v in mu.items()}
+    top = max(float(v.abs().max()) for v in mu.values())
+    names = [n for n, _ in got.model.named_parameters()]
+    worst = sorted(rel, key=rel.get, reverse=True)[:5]
+    return {"params_bn_excess_abs": model, "grads_rel_max": rel[worst[0]],
+            "grads_rel_to_largest_of_all": max(float((ga[k] - v).abs().max())
+                                               for k, v in mu.items()) / top,
+            "grads_worst": [[names[int(k[3:])], rel[k], float(wa[k].abs().max()) / 0.1]
+                            for k in worst]}
+
+
+def dp_world1(out_dir: str, tmp_dir: str) -> dict:
+    """Rank 0 of a world of 1 on NCCL: ``train.main`` (3 steps, an eval and
+    a checkpoint at step 3), then one data-parallel step bit-equal to
+    ``TL.train_step`` from the same state on the same batch, and both
+    timed."""
+    device = torch.device(DEVICE)
+    world = DP.init("nccl", device)
+    ck = os.path.join(tmp_dir, "ckpt_config5_dp1")
+    cfg, sets = c5_config(tmp_dir, 1, ["train.log_every=1", f"train.eval_every={DP_STEPS}",
+                                       f"train.checkpoint_every={DP_STEPS}",
+                                       f"train.checkpoint_dir={ck}"])
+    n_eval, n_train, n_fwd = form_convs(cfg)
+    log_path = os.path.join(out_dir, "train_log_config5_dp1.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    args = sum((["--set", x] for x in sets), ["--config", CONFIG5])
+    _, got = run_cli(train_cli.main, args + [
+        "--set", f"train.total_steps={DP_STEPS}", "--device", DEVICE, "--dist-backend", "nccl",
+        "--log-file", log_path], f"config5 world 1 (NCCL) train.main, {DP_STEPS} steps")
+    expect(got, (DP_STEPS * n_fwd + EVAL_SCENES * n_eval, DP_STEPS * (n_train - 1),
+                 DP_STEPS * n_train), "config5 world-1 train.main launches")
+    lines = jsonl(log_path)
+    head = lines[0]
+    evals = [r for r in lines if r["kind"] == "eval"]
+    if (head.get("world_size"), head.get("backend")) != (1, world.backend) or \
+            [r["scenes"] for r in evals] != [EVAL_SCENES] or \
+            CK.make_manager(ck).all_steps() != [DP_STEPS]:
+        raise AssertionError(f"config5 world-1 train.main: {head}, {evals}, "
+                             f"{CK.make_manager(ck).all_steps()}")
+    rec = {"train_main_launches": got,
+           "losses": train_losses(log_path, DP_STEPS, "config5 world-1 train.main"),
+           "eval": {k: evals[0][k] for k in evals[0] if k.startswith(("mAP", "scenes"))}}
+
+    init = TL.build_model(TL.train_cfg(cfg), device,
+                          torch.Generator().manual_seed(cfg.train.seed))
+    with Loader(cfg, seed=cfg.train.seed, threads=False, rank=0, world=1) as loader:
+        batches = [TL.to_device(next(loader), device, TL.TRAIN_KEYS) for _ in range(3)]
+    a, ma, launches, (calls, nbytes) = dp_step_record(world, cfg, init, batches[0])
+    b = TL.init_state(cfg, model=copy.deepcopy(init))
+    _, mb = TL.train_step(cfg, b, batches[0])
+    n = require_equal_states(a, b, "config5 world-1 DP step against TL.train_step")
+    if sorted(ma) != sorted(mb) or not all(torch.equal(ma[k], mb[k]) for k in mb):
+        raise AssertionError(f"config5 world-1 DP metrics {ma} against {mb}")
+    expect(launches, (n_fwd, n_train - 1, n_train), "config5 world-1 DP step launches")
+    n_params = sum(p.numel() for p in a.model.parameters())
+    step = DP.make_parallel_train_step(cfg, world)
+    rec.update({
+        "step_launches": launches, "bit_equal_tensors": n, "all_reduces_per_step": calls,
+        "bytes_all_reduced_per_step": nbytes, "gradient_bytes": 4 * n_params,
+        "dp_step_ms": timed_steps(lambda x: step(a, x), batches[1:], DP_TIMED // 2),
+        "single_step_ms": timed_steps(lambda x: TL.train_step(cfg, b, x), batches[1:],
+                                      DP_TIMED // 2)})
+    return rec
+
+
+def dp_world2(out_dir: str, tmp_dir: str) -> dict:
+    """A rank of a world of 2 on one card over gloo, global batch 2 (one
+    scene a rank, config 5's share of a chip): an f32 and a bf16 DP step
+    against ``TL.train_step`` on the global batch (on rank 0), the ranks'
+    states bit-equal; the in-training eval against one process's
+    ``run_eval`` and the packed masks of a val batch against
+    ``TL.eval_step``'s; the DP step timed."""
+    device = torch.device(DEVICE)
+    world = DP.init("gloo", device)
+    lead = world.rank == 0
+    rec = {"rank": world.rank}
+    for dtype in ("float32", "bfloat16"):
+        cfg, _ = c5_config(tmp_dir, 2, [f"model.backbone.dtype={dtype}"] + C5_WORLD2_SET)
+        n_eval, n_train, n_fwd = form_convs(cfg)
+        init = TL.build_model(TL.train_cfg(cfg), device,
+                              torch.Generator().manual_seed(cfg.train.seed))
+        with Loader(cfg, seed=cfg.train.seed, threads=False, rank=world.rank,
+                    world=2) as loader:
+            share = TL.to_device(next(loader), device, TL.TRAIN_KEYS)
+        state, m, launches, (calls, nbytes) = dp_step_record(world, cfg, init, share)
+        expect(launches, (n_fwd, n_train - 1, n_train), f"config5 world-2 {dtype} DP launches")
+        ranks = DP.gather_to_rank0(digests(state), world)
+        r = {"launches": launches, "all_reduces": calls, "bytes_all_reduced": nbytes,
+             "metrics": {k: float(v) for k, v in m.items()}}
+        if lead:
+            differ = sorted(k for k in ranks[0] if ranks[0][k] != ranks[1][k])
+            if differ or sorted(ranks[0]) != sorted(ranks[1]):
+                raise AssertionError(f"{dtype}: the ranks' states differ: {differ[:8]}")
+            r["ranks_bit_equal_tensors"] = len(ranks[0])
+            with Loader(cfg, seed=cfg.train.seed, threads=False) as loader:
+                whole = TL.to_device(next(loader), device, TL.TRAIN_KEYS)
+            ref = TL.init_state(cfg, model=copy.deepcopy(init))
+            _, mr = TL.train_step(cfg, ref, whole)
+            del whole
+            loss_rel = {k: abs(float(m[k]) - float(mr[k])) / max(abs(float(mr[k])), 1e-30)
+                        for k in ("rpn_obj", "rpn_box", "roi_cls", "roi_mask", "semantic",
+                                  "total", "grad_norm")}
+            err = state_errors(state, ref)
+            r.update({"loss_rel": loss_rel, **err})
+            tol = DP_TOL[dtype]
+            if max(loss_rel.values()) > tol["loss_rtol"] or \
+                    err["params_bn_excess_abs"] > tol["params_atol"] or \
+                    err["grads_rel_max"] > tol.get("grads_rel", np.inf):
+                raise AssertionError(f"{dtype}: 2 ranks against one process: {r}, "
+                                     f"tolerance {tol}")
+            del ref
+        DP.barrier(world)
+        rec[dtype] = r
+        if dtype == "float32":
+            del state, init
+            torch.cuda.empty_cache()
+            continue
+
+        # the in-training eval, and the packed masks of one val batch
+        reset_counts()
+        res = train_cli.evaluate(cfg, state, JsonlLogger(enabled=False), world)
+        torch.cuda.synchronize()
+        rec["eval_launches"] = counts()
+        evals_fwd = -(-EVAL_SCENES // 2)
+        expect(rec["eval_launches"], (evals_fwd * n_eval, 0, 0), "config5 world-2 eval launches")
+        with Loader(cfg, "val", train=False, rank=world.rank, world=2) as loader:
+            vb = TL.to_device(next(loader), device)
+        bits = DP.make_parallel_eval_step(cfg, world)(state, vb)["point_mask_bits"].cpu().numpy()
+        gathered = DP.gather_to_rank0(bits, world)
+        if lead:
+            # one process on the same scenes at a rank's batch of 1: the same
+            # computation, bit for bit; at its own batch of 2 cuDNN may pick
+            # other algorithms for the dense tail's convs (recorded)
+            with Loader(cfg, "val", train=False) as loader:
+                whole = TL.to_device(next(loader), device)
+            got = np.concatenate(gathered)
+            one = np.concatenate([TL.eval_step(cfg, state, {k: v[b:b + 1] for k, v in
+                                                            whole.items()})["point_mask_bits"]
+                                  .cpu().numpy() for b in range(2)])
+            if not np.array_equal(got, one):
+                raise AssertionError("config5 world-2 packed masks differ from one process's "
+                                     "at batch 1")
+            two = TL.eval_step(cfg, state, whole)["point_mask_bits"].cpu().numpy()
+            b1 = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=1))
+            single = train_cli.evaluate(b1, state, JsonlLogger(enabled=False))
+            maps = {k: (res[k], single[k]) for k in single if k.startswith(("mAP", "scenes",
+                                                                             "semantic"))}
+            if any(a != b for a, b in maps.values()):
+                raise AssertionError(f"config5 world-2 eval against one process: {maps}")
+            batch2 = train_cli.evaluate(cfg, state, JsonlLogger(enabled=False))
+            rec["eval_vs_one_process"] = maps
+            rec["packed_mask_bytes_equal"] = int(got.nbytes)
+            rec["one_process_batch2"] = {
+                "mask_bits_differing": int(np.unpackbits(got ^ two).sum()),
+                "mask_bits": int(got.size * 8),
+                **{k: batch2[k] for k in batch2 if k.startswith(("mAP", "semantic"))}}
+        DP.barrier(world)
+        with Loader(cfg, seed=cfg.train.seed, threads=False, rank=world.rank,
+                    world=2) as loader:
+            more = [TL.to_device(next(loader), device, TL.TRAIN_KEYS) for _ in range(2)]
+            # the other rank's scene of each batch: read and augmented, not voxelized
+            rec["loader_ms_per_scene"] = {
+                "replayed": 1e3 * loader.replay_s / loader.scenes_replayed,
+                "voxelized_own": 1e3 * loader.voxelize_s / loader.scenes_voxelized}
+        step = DP.make_parallel_train_step(cfg, world)
+        rec["dp_step_ms"] = timed_steps(lambda x: step(state, x), more, DP_TIMED // 2)
+        n = sum(p.numel() for p in state.model.parameters())
+        widest = max(cfg.model.backbone.widths)
+        rec["gloo_all_reduce_ms"] = {
+            "gradients": collective_ms(world, torch.zeros(n, device=device), 5),
+            "bn_sums": collective_ms(world, torch.zeros(widest + 1, device=device), 50)}
+    return rec
+
+
+def collective_ms(world, t, reps: int) -> float:
+    """Median host ms of one all-reduce of ``t`` among the ranks, from a
+    synchronised card to a synchronised card."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        DPC.all_reduce_(t, world)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dp_worker(mode: str, out_dir: str, tmp_dir: str) -> int:
+    """The body of each rank of ``phase_data_parallel``'s launcher calls:
+    writes its record to ``dp_<mode>_rank<r>.json`` in ``out_dir``."""
+    infer.setup_device(DEVICE, deterministic=True)
+    rec = (dp_world1 if mode == "world1" else dp_world2)(out_dir, tmp_dir)
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(out_dir, f"dp_{mode}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def launch_ranks(mode: str, nproc: int, out_dir: str, tmp_dir: str) -> list:
+    """``python -m torch.distributed.run --standalone`` with ``nproc`` ranks
+    of :func:`dp_worker` in a session of its own, killed whole if it
+    outlives ``DP_TIMEOUT_S``; its output goes to ``dp_<mode>.log``. A rank
+    that fails fails the phase. Returns the ranks' records."""
+    for r in range(nproc):
+        stale = os.path.join(out_dir, f"dp_{mode}_rank{r}.json")
+        if os.path.exists(stale):
+            os.remove(stale)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), os.path.abspath(__file__), "--dp-worker", mode,
+           "--out-dir", out_dir, "--tmp-dir", tmp_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out = proc.communicate(timeout=DP_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out = proc.communicate()[0] + f"\n(killed after {DP_TIMEOUT_S} s)"
+    with open(os.path.join(out_dir, f"dp_{mode}.log"), "w") as f:
+        f.write(out)
+    if proc.returncode != 0:
+        raise AssertionError(f"data-parallel {mode} ranks exited {proc.returncode}:\n"
+                             f"{out[-6000:]}")
+    log(f"  {mode}: {nproc} rank(s) done in {time.perf_counter() - t0:.1f} s (launcher "
+        "start included)")
+    recs = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"dp_{mode}_rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def phase_data_parallel(out_dir: str, tmp_dir: str, smi: str) -> dict:
+    """Config 5's path (widths 32-160, bf16, dense tail 2 for eval and 3 for
+    train, 262144 points, host voxelize, the ScanNet reader) data-parallel,
+    cut to one card: (a) a world of 1 on NCCL, (b) a world of 2 on gloo
+    sharing the card (NCCL refuses two ranks on one GPU)."""
+    log("[phase 11] data parallel: config 5's path, cut to one card: (a) world 1 on NCCL, "
+        "global batch 1 (train.main 3 steps, an eval of 3 val scenes, a checkpoint; a DP "
+        "step against TL.train_step); (b) world 2 on gloo on the same card, global batch 2, "
+        f"one scene a rank, data.num_workers 4 a rank (8 in the config); steps "
+        f"{DP_STEPS} (60000), val scenes {EVAL_SCENES}")
+    out_dir, tmp_dir = os.path.abspath(out_dir), os.path.abspath(tmp_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    scannet_root(tmp_dir)
+    torch.cuda.empty_cache()
+    (w1,) = launch_ranks("world1", 1, out_dir, tmp_dir)
+    log(f"  (a) world 1, NCCL: train.main launches {w1['train_main_launches']}; a DP step "
+        f"bit-equal to TL.train_step ({w1['bit_equal_tensors']} tensors and every metric, "
+        f"torch.equal), {w1['all_reduces_per_step']} all-reduces of "
+        f"{w1['bytes_all_reduced_per_step']} B a step (gradients {w1['gradient_bytes']} B); "
+        f"ms a step DP {json.dumps(w1['dp_step_ms'])}, single {json.dumps(w1['single_step_ms'])}")
+    w2 = launch_ranks("world2", 2, out_dir, tmp_dir)
+    lead = w2[0]
+    for dtype in ("float32", "bfloat16"):
+        r = lead[dtype]
+        log(f"  (b) world 2, gloo, {dtype}: ranks bit-equal ({r['ranks_bit_equal_tensors']} "
+            f"tensors); against one process on the global batch: losses rel "
+            f"{max(r['loss_rel'].values()):.3e}, params and BN beyond rtol "
+            f"{r['params_bn_excess_abs']:.3e}, gradients rel {r['grads_rel_max']:.3e} "
+            f"of each tensor's largest entry, {r['grads_rel_to_largest_of_all']:.3e} of the "
+            "largest of all "
+            f"(worst [name, rel, max |g|] {json.dumps(r['grads_worst'][:3])}) "
+            f"(tolerance {json.dumps(DP_TOL[dtype])}); launches rank 0 {r['launches']}, "
+            f"rank 1 {w2[1][dtype]['launches']}")
+    log(f"  (b) eval: mAP equal to one process's at batch 1 "
+        f"{json.dumps(lead['eval_vs_one_process'])}; packed masks bit-equal "
+        f"({lead['packed_mask_bytes_equal']} B); one process at batch 2 (cuDNN's dense-tail "
+        f"algorithms per batch shape) {json.dumps(lead['one_process_batch2'])}; the Loader's "
+        f"ms a scene {json.dumps(lead['loader_ms_per_scene'])}; one gloo "
+        f"all-reduce, median ms {json.dumps(lead['gloo_all_reduce_ms'])}; 2-rank step ms (two processes sharing one card, not "
+        f"scaling): rank 0 {json.dumps(lead['dp_step_ms'])}, rank 1 "
+        f"{json.dumps(w2[1]['dp_step_ms'])}")
+    launches = {
+        f"config5 DP world 1 nccl train.main ({DP_STEPS} steps, 1 eval)": w1["train_main_launches"],
+        "config5 DP world 1 nccl, one step": w1["step_launches"],
+        **{f"config5 DP world 2 gloo rank {r['rank']}, one {d} step": r[d]["launches"]
+           for r in w2 for d in ("float32", "bfloat16")},
+        **{f"config5 DP world 2 gloo rank {r['rank']}, eval (3 scenes)": r["eval_launches"]
+           for r in w2}}
+    for k, v in launches.items():
+        if min(v[:1] if "eval" in k else v) == 0:
+            raise AssertionError(f"{k}: a kernel of the path never launched: {v}")
+    summary = {
+        "card": smi,
+        "world1_nccl": {k: w1[k] for k in ("dp_step_ms", "single_step_ms",
+                                           "bytes_all_reduced_per_step", "all_reduces_per_step",
+                                           "gradient_bytes", "bit_equal_tensors")},
+        "world2_gloo_shared_card": {
+            "step_ms_rank0": lead["dp_step_ms"], "step_ms_rank1": w2[1]["dp_step_ms"],
+            "all_reduce_ms": lead["gloo_all_reduce_ms"],
+            "loader_ms_per_scene": lead["loader_ms_per_scene"],
+            "bytes_all_reduced_per_step": lead["bfloat16"]["bytes_all_reduced"],
+            **{d: {k: lead[d][k] for k in ("params_bn_excess_abs", "grads_rel_max")}
+               | {"loss_rel_max": max(lead[d]["loss_rel"].values()),
+                  "grads_rel_to_largest_of_all": lead[d]["grads_rel_to_largest_of_all"]}
+               for d in ("float32", "bfloat16")}},
+    }
+    log(f"  {smi}")
+    return {"launches": launches, "world1": w1, "world2": w2, "summary": summary}
+
+
 def totals(main_path) -> dict:
     """Sums over one step's main-path records: kernel, plain, library and
     bound ms, and what bounds the step (its bytes over the card's memory rate
@@ -2018,7 +2423,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of sparse_rcnn_tpu_torch.")
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "chiprun_out", "chip_smoke"),
                     help="where the detailed records go")
+    ap.add_argument("--dp-worker", choices=("world1", "world2"), default=None,
+                    help=argparse.SUPPRESS)      # a rank of phase 11, started by it
+    ap.add_argument("--tmp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dp_worker:
+        return dp_worker(args.dp_worker, args.out_dir, args.tmp_dir)
     t_start = time.perf_counter()
     smi = card_info()
     os.makedirs(args.out_dir, exist_ok=True)
@@ -2046,6 +2456,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     c2_convs = (c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"])
     p9 = phase_eval_checkpoints(args.out_dir, tmp_dir, smi, c2_convs)
     p10 = phase_data_layer(args.out_dir, tmp_dir, smi, c2_convs)
+    p11 = phase_data_parallel(args.out_dir, tmp_dir, smi)
 
     src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
     records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
@@ -2054,7 +2465,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
              f"config1 train.main ({TRAIN_STEPS} steps)": train["launches"],
              "config2 infer.main (1 batch)": c2["launches_infer"],
              f"config2 train.main ({C2_TRAIN_STEPS} steps)": c2["launches_train"],
-             **p9["launches"], **p10["launches"]}
+             **p9["launches"], **p10["launches"], **p11["launches"]}
     pool = p10["pool_main_path"]
     n_eval, n_train = c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"]
     kernels = {"kernels": [
@@ -2091,14 +2502,15 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
               "backward_random": bwd_recs, "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
               "train": train, "golden_train": golden_train, "config2": c2,
-              "eval_checkpoints": p9, "data_layer": p10}
+              "eval_checkpoints": p9, "data_layer": p10, "data_parallel": p11}
     with open(os.path.join(args.out_dir, "kernels.json"), "w") as f:
         json.dump(record, f, indent=1)
-    log(f"[phase 11] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[phase 12] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"eval_checkpoints": {k: p9[k] for k in (
         "card", "eval_split_per_scene", "config2_fetch", "config2_checkpoint",
         "card_vs_cpu_max_abs_diff")}}))
     print(json.dumps({"data_layer": p10["summary"]}))
+    print(json.dumps({"data_parallel": p11["summary"]}))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,14 @@ batches, in the same order, in the caller's thread. With
 C++ core (:mod:`..native`), and the device path skips its own voxelize;
 a library that does not build fails the Loader, with the compiler's message.
 
+Under data parallel a Loader of ``rank`` among ``world`` ranks yields slots
+``[rank·b/world, (rank+1)·b/world)`` of each global batch of ``b`` scenes:
+the very scenes, with the very augmentations, that one process's Loader
+puts in those slots (JAX's sharded batch gives each device the same
+slots). A scene's augmentation draws depend on its points, so a rank
+replays the other slots' augmentations to keep its generator in step, and
+voxelizes only its own scenes (``replay_s``, ``scenes_replayed``).
+
 :func:`device_batches` puts a stream of host batches on a device. On the
 card each batch goes through pinned host buffers and non-blocking copies on
 a copy stream, the next batch's copy started before the current batch is
@@ -76,15 +84,22 @@ class Loader:
     Counters: ``wait_s``, the seconds the consumer spent waiting for a
     batch (near 0 past the first batch when the workers keep ahead of the
     step); ``batches_out``; ``voxelize_s`` and ``scenes_voxelized``, the
-    workers' time in the C++ voxelizer.
+    workers' time in the C++ voxelizer; ``replay_s`` and
+    ``scenes_replayed``, the workers' time reading and augmenting the
+    scenes of other ranks' slots.
     """
 
     def __init__(self, cfg: Config, split: str = "train", train: bool = True,
-                 seed: int = 0, threads: bool = True):
+                 seed: int = 0, threads: bool = True, rank: int = 0, world: int = 1):
         self.cfg = cfg
         self.split = split
         self.train = train
         self.seed = seed
+        b = cfg.data.batch_size
+        if b % world or not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of {world}: data.batch_size {b} must be a "
+                             "multiple of the world size")
+        self.slots = range(rank * b // world, (rank + 1) * b // world)
         self.dataset = build_dataset(cfg, split)
         if cfg.data.host_voxelize:
             native.load()          # raises here, not in a worker, if it cannot build
@@ -93,6 +108,8 @@ class Loader:
         self.batches_out = 0
         self.voxelize_s = 0.0
         self.scenes_voxelized = 0
+        self.replay_s = 0.0
+        self.scenes_replayed = 0
         self._count_lock = threading.Lock()
         self._turn = 0
         self._done = False
@@ -127,17 +144,33 @@ class Loader:
                 self.scenes_voxelized += 1
         return scene
 
+    def _replay(self, idx: int, rng: np.random.Generator) -> None:
+        """Another rank's scene: its augmentation's draws, and nothing kept."""
+        if not (self.train and self.cfg.data.augment):
+            return
+        t0 = time.perf_counter()
+        augment_scene(self.dataset[idx % len(self.dataset)], self.cfg.data, rng)
+        with self._count_lock:
+            self.replay_s += time.perf_counter() - t0
+            self.scenes_replayed += 1
+
     def _batches(self, wid: int) -> Iterator[Dict[str, np.ndarray]]:
-        """Worker ``wid``'s batches, in its order."""
+        """Worker ``wid``'s batches (this rank's slots of each), in its order."""
         rng = np.random.default_rng((self.seed, wid))
         b, n = self.cfg.data.batch_size, len(self.dataset)
         if self.train:
             while True:
                 idxs = rng.integers(0, n, b)
-                yield collate([self._scene(int(i), rng) for i in idxs])
+                scenes = []
+                for j, i in enumerate(idxs):
+                    if j in self.slots:
+                        scenes.append(self._scene(int(i), rng))
+                    else:
+                        self._replay(int(i), rng)
+                yield collate(scenes)
         else:
             for start in range(0, n, b):
-                yield collate([self._scene((start + j) % n, rng) for j in range(b)])
+                yield collate([self._scene((start + j) % n, rng) for j in self.slots])
 
     def _worker(self, wid: int) -> None:
         q = self._queues[wid]

@@ -9,7 +9,7 @@ slots with them (the JAX package's Fast-R-CNN-style GT injection).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -52,9 +52,11 @@ class SparseRCNN(nn.Module):
     def forward(self, feats: torch.Tensor, scales: List[ScaleSet],
                 gt_boxes: Optional[torch.Tensor] = None,
                 gt_boxes_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """``generator``: the backbone's dropout masks in training mode."""
-        outs = self.backbone(feats, scales, generator)
+                generators: Optional[Sequence[torch.Generator]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """``generators``: the sources of the backbone's dropout masks in
+        training mode, one per scene."""
+        outs = self.backbone(feats, scales, generators)
         return self.heads(outs, scales, gt_boxes, gt_boxes_valid)
 
     def heads(self, outs: List[torch.Tensor], scales: List[ScaleSet],

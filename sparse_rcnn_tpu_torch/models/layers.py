@@ -14,13 +14,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import sparse_conv as sc
+from ..parallel import context as DPC
 
 # True while a rematerialised block recomputes its forward in the backward
 # (:func:`remat`): MaskedBatchNorm then leaves its running statistics alone
@@ -81,6 +82,12 @@ class MaskedBatchNorm(nn.Module):
     f32; the normalisation runs in the compute dtype and is re-masked. The
     forward that :func:`remat` recomputes in the backward moves no running
     statistic (flax's ``nn.remat`` updates them once per step).
+
+    Under data parallel (:func:`..parallel.context.shard_context`) the
+    statistics are the global batch's, as GSPMD gives JAX's: one
+    differentiable all-reduce of ``Σ f·m`` and ``Σ m`` gives the mean, a
+    second one of ``Σ (f − mean)²·m`` the variance. Every rank then holds
+    the same statistics and moves its running ones identically.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -98,9 +105,18 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             m = mask[..., None].to(torch.float32)
             f32 = feats.to(torch.float32)
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (f32 * m).sum(dim=(0, 1)) / count
-            var = (torch.square(f32 - mean) * m).sum(dim=(0, 1)) / count
+            world = DPC.current()
+            if world is None:
+                count = torch.clamp(m.sum(), min=1.0)
+                mean = (f32 * m).sum(dim=(0, 1)) / count
+                var = (torch.square(f32 - mean) * m).sum(dim=(0, 1)) / count
+            else:
+                sums = DPC.all_reduce_sum(
+                    torch.cat([(f32 * m).sum(dim=(0, 1)), m.sum()[None]]), world)
+                count = torch.clamp(sums[-1].detach(), min=1.0)
+                mean = sums[:-1] / count
+                var = DPC.all_reduce_sum(
+                    (torch.square(f32 - mean) * m).sum(dim=(0, 1)), world) / count
             if not _RECOMPUTING:
                 with torch.no_grad():
                     self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
@@ -128,16 +144,20 @@ def remat(block: nn.Module, *args):
     (flax's ``nn.remat``): ``torch.utils.checkpoint`` runs the forward again
     in the backward. The recomputed forward sees the same inputs, weights and
     batch statistics, so it gives the same bits; it moves no BN running
-    statistic. Without a gradient to take, the block just runs."""
+    statistic. Under data parallel it runs in the data-parallel context of
+    the first run (the backward may run on another thread), so every rank
+    issues the same collectives again, in the same order. Without a
+    gradient to take, the block just runs."""
     if not (torch.is_grad_enabled() and block.training):
         return block(*args)
     calls = []
+    world = DPC.current()
 
     def run(*a):
         calls.append(None)
         if len(calls) == 1:
             return block(*a)
-        with _recomputing():
+        with _recomputing(), DPC.shard_context(world):
             return block(*a)
     return checkpoint(run, *args, use_reentrant=False)
 
@@ -192,16 +212,23 @@ def sparse_dropout(feats: torch.Tensor, keep: torch.Tensor, rate: float) -> torc
 class SparseDropout(nn.Module):
     """Feature dropout (port of ``SparseDropout``); inert when not training.
     The keep mask, each entry kept with probability ``1 - rate``, is drawn
-    from the ``generator`` given (the torch default one without)."""
+    scene by scene, scene b's from ``generators[b]`` (the torch default
+    generator without): a scene's mask depends neither on the other scenes
+    of its batch nor on the rank that holds it."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, feats, generator=None):
+    def forward(self, feats, generators: Optional[Sequence[torch.Generator]] = None):
         if self.rate <= 0.0 or not self.training:
             return feats
-        u = torch.rand(feats.shape, generator=generator, device=feats.device)
+        if generators is None:
+            generators = [None] * feats.shape[0]
+        if len(generators) != feats.shape[0]:
+            raise ValueError(f"{len(generators)} dropout generators for {feats.shape[0]} scenes")
+        u = torch.stack([torch.rand(feats.shape[1:], generator=g, device=feats.device)
+                         for g in generators])
         return sparse_dropout(feats, u < 1.0 - self.rate, self.rate)
 
 

@@ -7,6 +7,10 @@ semantic term is added unweighted. The two cross entropies are optax's
 formulas: ``sigmoid_binary_cross_entropy`` in log-sigmoid form and
 ``softmax_cross_entropy_with_integer_labels`` as logsumexp minus the label
 logit.
+
+Under data parallel (:func:`..parallel.context.shard_context`) each
+masked mean divides this rank's ``Σ x·w`` by the global ``Σ w``, so the
+global batch's loss is the sum of the ranks' terms, as under JAX's GSPMD.
 """
 
 from __future__ import annotations
@@ -16,11 +20,18 @@ from typing import Dict, Tuple
 import torch
 from torch.nn import functional as F
 
+from ..parallel import context as DPC
 from .targets import RoITargets, RPNTargets
 
 
 def masked_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
+    """``Σ x·w / max(Σ w, 1)``; under data parallel ``Σ w`` is the global
+    batch's (the weights are targets: no gradient flows through them)."""
+    world = DPC.current()
+    if world is None:
+        return torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
+    count = DPC.all_reduce_(torch.sum(w).detach(), world)
+    return torch.sum(x * w) / torch.clamp(count, min=1.0)
 
 
 def sigmoid_binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -21,8 +21,8 @@ sparse scale's down conv by a pool over each coarse site's children
 (:mod:`..ops.pooling`) and a bias-free 1×1 projection ``down{s}_proj``; the
 dense tail always downsamples by strided convs. ``dropout`` adds
 :class:`.layers.SparseDropout` after each sparse encoder and decoder block
-stack (``enc{s}_drop``, ``dec{s}_drop``), drawing from the generator the
-forward is given.
+stack (``enc{s}_drop``, ``dec{s}_drop``), drawing each scene's mask from
+the generator the forward is given for it.
 """
 
 from __future__ import annotations
@@ -293,8 +293,9 @@ class SparseUNet(nn.Module):
         return remat(block, x, idx, mask) if self.remat else block(x, idx, mask)
 
     def forward(self, feats: torch.Tensor, scales: List[ScaleSet],
-                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
-        """``generator``: the dropout masks' source in training mode."""
+                generators: Optional[Sequence[torch.Generator]] = None) -> List[torch.Tensor]:
+        """``generators``: the dropout masks' sources in training mode, one
+        per scene."""
         ns, n_sparse = len(self.widths), self.n_sparse
         if len(scales) != ns:
             raise ValueError(f"{len(scales)} scales for {ns} widths")
@@ -305,7 +306,7 @@ class SparseUNet(nn.Module):
             for b in range(self.blocks_per_scale):
                 x = self._block(f"enc{s}_block{b}", x, scales[s].subm_idx, masks[s])
             if self.dropout > 0:
-                x = getattr(self, f"enc{s}_drop")(x, generator)
+                x = getattr(self, f"enc{s}_drop")(x, generators)
             skips.append(x)
             if s < ns - 1:
                 x = torch.relu(getattr(self, f"down{s}_bn")(x, masks[s]))
@@ -337,6 +338,6 @@ class SparseUNet(nn.Module):
             for b in range(self.blocks_per_scale):
                 x = self._block(f"dec{s}_block{b}", x, scales[s].subm_idx, masks[s])
             if self.dropout > 0:
-                x = getattr(self, f"dec{s}_drop")(x, generator)
+                x = getattr(self, f"dec{s}_drop")(x, generators)
             outputs[s] = x
         return outputs

@@ -15,6 +15,7 @@ Loader's worker threads voxelize in parallel with the step.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -42,6 +43,15 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # processes that build at once (data-parallel ranks) take turns
+    with open(so.with_name(so.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            return so
+        return _compile(so)
+
+
+def _compile(so: Path) -> Path:
     tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [CXX, *FLAGS, "-o", str(tmp), str(SOURCE)]
     try:

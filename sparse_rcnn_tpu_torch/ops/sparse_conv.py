@@ -29,6 +29,7 @@ There is no fallback: a CUDA tensor gets the kernels or an exception.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -94,12 +95,22 @@ def sparse_conv_wgrad_reference(feats: torch.Tensor, t_idx: torch.Tensor,
 def build_kernel(source: Path = _SRC) -> tuple:
     """Compile ``source`` (by default ``csrc/sparse_conv.cu``) for sm_90a
     unless a library built from the same text exists. Returns (path of the
-    .so, nvcc's messages)."""
+    .so, nvcc's messages). Processes that build at once (the ranks of a
+    data-parallel run) take turns on a file lock: the first compiles, the
+    others then find its library; a failed build raises in each of them."""
     src = Path(source).read_bytes()
     so = _BUILD_DIR / f"libsparse_conv_{hashlib.sha1(src).hexdigest()[:12]}.so"
     if so.exists():
         return so, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(so.with_name(so.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            return so, ""
+        return _nvcc(source, so)
+
+
+def _nvcc(source: Path, so: Path) -> tuple:
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")

@@ -29,20 +29,39 @@ A ``trainer.pid`` file in ``train.checkpoint_dir`` refuses a second live
 trainer on the same directory; a stale one is reclaimed. On the card, TF32
 is off (an f32 config computes in f32) and cuDNN runs its deterministic
 algorithms. ``--profile`` waits for ROADMAP §1 item 13.
+
+Data parallel, one process per device (``parallel/data_parallel.py``)::
+
+    python -m torch.distributed.run --nproc-per-node N -m sparse_rcnn_tpu_torch.train \
+        --config configs/config5_v5e8_dp.yaml --set parallel.num_devices=N
+
+A launcher's ``WORLD_SIZE`` makes the run data-parallel: rank r trains on
+``cuda:{LOCAL_RANK}`` (or ``--device``) over ``--dist-backend`` (``nccl``
+on the card, ``gloo`` on the CPU), on its slots of each global batch of
+``data.batch_size`` scenes, and every step is the global batch's. Rank 0
+alone holds the pidfile, writes the log and saves the checkpoints (in the
+single-process format; the others wait for each save); a resume restores
+on rank 0 and broadcasts the state. The in-training eval splits each eval
+batch over the ranks and rank 0 scores the whole of it.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import os
 import time
+from typing import Optional
 
 import torch
+from torch import distributed as dist
 
 from ..config import Config, load_config
 from ..data.pipeline import Loader, device_batches
 from ..infer import parse_overrides, setup_device
+from ..parallel import data_parallel as DP
+from ..parallel.context import World, shard_context
 from ..utils.logging import JsonlLogger
 from . import checkpoint as CK
 from . import loop as TL
@@ -78,60 +97,98 @@ def claim_checkpoint_dir(directory: str):
         os.remove(pidfile)
 
 
-def evaluate(cfg: Config, state: TL.TrainState, log: JsonlLogger) -> dict:
+def evaluate(cfg: Config, state: TL.TrainState, log: JsonlLogger,
+             world: Optional[World] = None) -> dict:
     """The in-training eval: the leading ``min(eval_scenes, n_val)`` val
     scenes, the same ones at every eval point; with EMA also the raw
-    weights (``eval_raw``). Returns the logged ``eval`` dict."""
-    with Loader(cfg, "val", train=False) as loader:
-        n_val = len(loader.dataset)
-        n_eval = min(cfg.train.eval_scenes or n_val, n_val)
-        mb = -(-n_eval // cfg.data.batch_size)
-        res = run_eval(cfg, state, loader, max_batches=mb, num_scenes=n_eval)
+    weights (``eval_raw``). Under data parallel each rank runs its slots of
+    each eval batch and every rank gets rank 0's result. Returns the logged
+    ``eval`` dict."""
+    share = {} if world is None else {"rank": world.rank, "world": world.size}
+
+    def one_pass(source):
+        with Loader(cfg, "val", train=False, **share) as loader, shard_context(world):
+            n_val = len(loader.dataset)
+            n_eval = min(cfg.train.eval_scenes or n_val, n_val)
+            mb = -(-n_eval // cfg.data.batch_size)
+            return run_eval(cfg, source, loader, max_batches=mb, num_scenes=n_eval)
+
+    res = one_pass(state)
     log.log("eval", step=state.step, **res)
     if cfg.train.ema > 0 and state.ema_params is not None:
-        with Loader(cfg, "val", train=False) as loader:
-            raw = run_eval(cfg, state.model, loader, max_batches=mb, num_scenes=n_eval)
-        log.log("eval_raw", step=state.step, **raw)
+        log.log("eval_raw", step=state.step, **one_pass(state.model))
     return res
 
 
 def main(argv=None) -> TL.TrainState:
     ap = argparse.ArgumentParser(
-        description="Train the port, with checkpoints, in-training eval and resume "
+        description="Train the port, with checkpoints, in-training eval and resume, on one "
+                    "device or data-parallel under python -m torch.distributed.run "
                     "(--profile waits for ROADMAP §1 item 13).")
     ap.add_argument("--config", default=None)
     ap.add_argument("--set", action="append", dest="overrides", metavar="key.path=value")
     ap.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoint of train.checkpoint_dir")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="default cuda; under a launcher cuda:{LOCAL_RANK}")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="collectives of a data-parallel run: by default nccl on the card, "
+                         "gloo on the CPU (two ranks on one card need gloo)")
+    ap.add_argument("--dist-init", default="env://",
+                    help="init_method of the process group (env:// reads MASTER_ADDR and "
+                         "MASTER_PORT; file://PATH needs no port)")
     ap.add_argument("--log-file", default=None, help="append the jsonl lines here too")
     ap.add_argument("--tensorboard", default=None, metavar="DIR",
                     help="mirror numeric metrics to TensorBoard event files")
     args = ap.parse_args(argv)
 
-    device = setup_device(args.device, deterministic=True)
     cfg = load_config(args.config, parse_overrides(args.overrides))
-    with claim_checkpoint_dir(cfg.train.checkpoint_dir):
-        return train(cfg, device, args)
+    if not DP.launched():
+        device = setup_device(args.device or "cuda", deterministic=True)
+        with claim_checkpoint_dir(cfg.train.checkpoint_dir):
+            return train(cfg, device, args)
+    DP.check_config(cfg, int(os.environ["WORLD_SIZE"]))
+    device = setup_device(DP.rank_device(args.device), deterministic=True)
+    created = not dist.is_initialized()
+    world = DP.init(args.dist_backend or DP.default_backend(device), device, args.dist_init)
+    try:
+        claim = (claim_checkpoint_dir(cfg.train.checkpoint_dir) if world.rank == 0
+                 else contextlib.nullcontext())
+        with claim:
+            return train(cfg, device, args, world)
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
-def train(cfg: Config, device: torch.device, args) -> TL.TrainState:
+def train(cfg: Config, device: torch.device, args,
+          world: Optional[World] = None) -> TL.TrainState:
     ckpt_dir = cfg.train.checkpoint_dir
-    log = JsonlLogger(args.log_file, tb_dir=args.tensorboard)
-    log.log("config", name=cfg.name, device=str(device), total_steps=cfg.train.total_steps)
+    lead = world is None or world.rank == 0
+    log = JsonlLogger(args.log_file, tb_dir=args.tensorboard, enabled=lead)
+    dp = {} if world is None else {"world_size": world.size, "backend": world.backend}
+    log.log("config", name=cfg.name, device=str(device), total_steps=cfg.train.total_steps,
+            **dp)
     state = TL.init_state(cfg, device, torch.Generator().manual_seed(cfg.train.seed))
     mgr = CK.make_manager(ckpt_dir, cfg.train.keep_checkpoints)
-    if args.resume and CK.restore(mgr, state) is not None:
+    resumed = args.resume and lead and CK.restore(mgr, state) is not None
+    state = DP.replicate_state(state, world)
+    if resumed:
         log.log("resume", step=state.step)
     best_mgr = CK.make_manager(CK.best_dir(ckpt_dir), keep=1)
     # seeded from the sidecar: a worse eval after a resume keeps the best
     best_map = CK.read_best_score(ckpt_dir)
+    if world is not None:
+        best_map = DP.broadcast_from_rank0(best_map, world)
+    step_fn = (functools.partial(TL.train_step, cfg) if world is None
+               else DP.make_parallel_train_step(cfg, world))
+    share = {} if world is None else {"rank": world.rank, "world": world.size}
     t_last, step_last = time.perf_counter(), state.step
-    with Loader(cfg, "train", seed=cfg.train.seed) as loader:
+    with Loader(cfg, "train", seed=cfg.train.seed, **share) as loader:
         stream = device_batches(loader, device, TL.TRAIN_KEYS)
         while state.step < cfg.train.total_steps:
             _, batch = next(stream)
-            state, metrics = TL.train_step(cfg, state, batch)
+            state, metrics = step_fn(state, batch)
             step = state.step
             if step % cfg.train.log_every == 0 or step == cfg.train.total_steps:
                 metrics = {k: float(v) for k, v in metrics.items()}    # waits for the card
@@ -140,19 +197,27 @@ def train(cfg: Config, device: torch.device, args) -> TL.TrainState:
                 t_last, step_last = now, step
                 log.log("train", step=step, scenes_per_sec=round(sps, 2), **metrics)
             if step % cfg.train.eval_every == 0:
-                res = evaluate(cfg, state, log)
+                res = evaluate(cfg, state, log, world)
                 score = res.get("mAP@0.5", res.get("mAP@0.25"))
                 if score is not None and score > best_map:
                     best_map = score
-                    CK.save(best_mgr, state)
-                    CK.write_best_score(ckpt_dir, score, step)
+                    if lead:
+                        CK.save(best_mgr, state)
+                        CK.write_best_score(ckpt_dir, score, step)
                     log.log("checkpoint_best", step=step, map50=round(float(score), 4))
+                DP.barrier(world)
             if step % cfg.train.checkpoint_every == 0:
-                CK.save(mgr, state)
+                if lead:
+                    CK.save(mgr, state)
                 log.log("checkpoint", step=step)
+                DP.barrier(world)
         log.log("loader", wait_s=loader.wait_s, batches_out=loader.batches_out,
-                voxelize_s=loader.voxelize_s, scenes_voxelized=loader.scenes_voxelized)
-    CK.save(mgr, state)
+                voxelize_s=loader.voxelize_s, scenes_voxelized=loader.scenes_voxelized,
+                **({} if world is None else {"replay_s": loader.replay_s,
+                                             "scenes_replayed": loader.scenes_replayed}))
+    if lead:
+        CK.save(mgr, state)
+    DP.barrier(world)
     log.log("done", step=state.step)
     log.close()
     return state

@@ -14,6 +14,8 @@ import torch
 
 from ..config import Config
 from ..data.pipeline import device_batches
+from ..parallel import context as DPC
+from ..parallel import data_parallel as DP
 from ..utils.metrics import InstanceAPEvaluator, SemanticMIoUEvaluator
 from . import loop as TL
 
@@ -49,6 +51,15 @@ def fetch_eval_outputs(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     host = {k: v.cpu().numpy() for k, v in out.items() if k not in _NOT_FETCHED}
     host["point_mask_n"] = int(out["point_mask_logits"].shape[-1])
     return host
+
+
+def _scene_slice(out: Dict[str, np.ndarray], batch: Dict[str, np.ndarray], b: int):
+    """Scene ``b`` of fetched eval outputs (a batch of one; scalars as they
+    are) and its point labels (valid, instance, semantic)."""
+    o = {k: (v[b:b + 1] if np.ndim(v) else v) for k, v in out.items()}
+    labels = tuple(np.asarray(batch[k][b]) for k in ("valid", "point_instance",
+                                                     "point_semantic"))
+    return o, labels
 
 
 def postprocess_scene(out: Dict[str, np.ndarray], b: int, num_classes: int,
@@ -98,8 +109,16 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
     step syncs with the host on its way), ``eval_fetch_s`` the copies to the
     host, ``eval_host_s`` the scoring. The batches run and are scored in
     order, one after the other.
+
+    Under data parallel (:func:`..parallel.context.shard_context`, with
+    ``loader`` a rank's share of each global batch) every rank runs the
+    eval step on its slots and fetches them to the host; rank 0 gathers
+    the scenes in global order and scores them once, as one process scores
+    the whole batches; every rank returns rank 0's result (its times are
+    rank 0's).
     """
     t_pass = time.perf_counter()
+    world = DPC.current()
     model = TL.eval_model(cfg, source)
     device = next(model.parameters()).device
     bs = cfg.data.batch_size
@@ -121,23 +140,29 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
         out = fetch_eval_outputs(raw)
         del raw
         t2 = time.perf_counter()
-        for b in range(bs):
-            if num_scenes is not None and bi * bs + b >= num_scenes:
-                break          # a wrap-pad duplicate of a scene already scored
-            masks, scores, pred_cls, pmask = postprocess_scene(out, b, cfg.model.num_classes)
-            point_valid = np.asarray(batch["valid"][b])
-            pinst = np.asarray(batch["point_instance"][b])
-            psem = np.asarray(batch["point_semantic"][b])
+        local = len(batch["valid"])
+        first = bi * bs + (0 if world is None else world.rank * local)
+        scenes = [(first + b, _scene_slice(out, batch, b)) for b in range(local)]
+        if world is not None:
+            ranks = DP.gather_to_rank0(scenes, world)
+            scenes = [] if ranks is None else [s for r in ranks for s in r]
+        for g, (o, labels) in scenes:
+            if num_scenes is not None and g >= num_scenes:
+                continue       # a wrap-pad duplicate of a scene already scored
+            masks, scores, pred_cls, pmask = postprocess_scene(o, 0, cfg.model.num_classes)
+            point_valid, pinst, psem = labels
             gt_cls = _gt_classes_from_points(pinst, psem, point_valid)
             ev.add_scene(masks, scores, pred_cls, pmask, pinst, gt_cls, point_valid)
-            if "point_semantic_pred" in out:
+            if "point_semantic_pred" in o:
                 semantic = True
-                sem_ev.add(np.asarray(out["point_semantic_pred"][b])[point_valid],
+                sem_ev.add(np.asarray(o["point_semantic_pred"][0])[point_valid],
                            psem[point_valid])
             seen += 1
         t_dev += t1 - t0
         t_fetch += t2 - t1
         t_host += time.perf_counter() - t2
+    if world is not None and world.rank != 0:
+        return DP.broadcast_from_rank0(None, world)
     res = ev.compute(per_class=per_class)
     if per_scene:
         ps = np.asarray(ev.per_scene_map(0.5), np.float64)
@@ -159,4 +184,6 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
     res["eval_dev_s"] = t_dev
     res["eval_fetch_s"] = t_fetch
     res["eval_host_s"] = t_host
+    if world is not None:
+        DP.broadcast_from_rank0(res, world)
     return res

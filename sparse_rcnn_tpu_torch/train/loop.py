@@ -36,6 +36,7 @@ from ..models.detector import SparseRCNN, paint_instance_masks
 from ..models.targets import roi_targets, rpn_targets
 from ..ops import hierarchy as H
 from ..ops import voxelize as V
+from ..parallel import context as DPC
 from ..sparse import make_sparse_tensor
 
 BATCH_KEYS = ("points", "feats", "valid")
@@ -426,27 +427,32 @@ def deterministic_on_cpu(device):
         torch.use_deterministic_algorithms(was, warn_only=warn_only)
 
 
-def dropout_generator(cfg: Config, step: int, device) -> torch.Generator:
-    """The generator of step ``step``'s dropout masks, on ``device``, seeded
-    by (``train.seed``, ``step``): a resumed run draws the masks of an
-    unbroken one, with no generator state in the checkpoint. (JAX splits a
-    key carried in its state; the masks differ from JAX's, not their law.)"""
-    seed = int(np.random.SeedSequence([cfg.train.seed, step]).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(seed)
+def dropout_generators(cfg: Config, step: int, device, scenes) -> List[torch.Generator]:
+    """The generators of step ``step``'s dropout masks on ``device``, one
+    for each global scene index of ``scenes``, seeded by (``train.seed``,
+    ``step``, scene): a resumed run draws an unbroken run's masks, with no
+    generator state in the checkpoint, and the rank that holds a scene
+    draws the masks one process would draw for it. (JAX splits a key
+    carried in its state; the masks differ from JAX's, not their law.)"""
+    gens = []
+    for scene in scenes:
+        seed = int(np.random.SeedSequence([cfg.train.seed, step, scene]).generate_state(1)[0])
+        gens.append(torch.Generator(device=device).manual_seed(seed))
+    return gens
 
 
 def loss_and_grads(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator] = None):
+                   generators: Optional[List[torch.Generator]] = None):
     """Forward in training mode (BN batch statistics, GT injection, dropout
-    masks from ``generator``), losses and the gradients of every parameter
-    (zeros where none flows), bit-stable from run to run on the card and on
-    the CPU (:func:`deterministic_on_cpu`). Returns (total, parts, grads,
-    aux); the BN running statistics move."""
+    masks from ``generators``, one per scene), losses and the gradients of
+    every parameter (zeros where none flows), bit-stable from run to run on
+    the card and on the CPU (:func:`deterministic_on_cpu`). Returns (total,
+    parts, grads, aux); the BN running statistics move."""
     cfg = train_cfg(cfg)
     st, _, scales, gt, aux = prepare_inputs(cfg, batch)
     model.train()
     out = model(st.feats, scales, gt_boxes=gt.boxes, gt_boxes_valid=gt.valid,
-                generator=generator)
+                generators=generators)
     total, parts = compute_losses(cfg, out, scales, gt, st.row_mask)
     params = list(model.parameters())
     with deterministic_on_cpu(total.device):
@@ -455,21 +461,51 @@ def loss_and_grads(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor
     return total.detach(), {k: v.detach() for k, v in parts.items()}, grads, aux
 
 
+# how the data-parallel step reduces each metric over the ranks: a sum
+# unless named here (``grad_norm`` is of the reduced gradients already)
+METRIC_REDUCTION = {"voxels_per_scene": "mean", "grad_norm": "none"}
+
+
+def reduce_metrics(metrics: Dict[str, torch.Tensor], world: DPC.World) -> None:
+    """The metrics of the global batch from each rank's, in place, in one
+    collective: the loss parts are the ranks' terms of global masked means
+    and add up, the counters add up, ``voxels_per_scene`` is the mean of
+    the ranks' equal shares (:data:`METRIC_REDUCTION`)."""
+    keys = [k for k in metrics if METRIC_REDUCTION.get(k) != "none"]
+    vals = DPC.all_reduce_(torch.stack([metrics[k].to(torch.float64) for k in keys]), world)
+    for k, v in zip(keys, vals):
+        if METRIC_REDUCTION.get(k) == "mean":
+            v = v / world.size
+        metrics[k] = v.to(metrics[k].dtype)
+
+
 def train_step(cfg: Config, state: TrainState, batch: Dict[str, torch.Tensor]):
     """One optimization step, in place. Returns (state, metrics): the loss
     parts, ``total``, ``grad_norm`` (of the raw gradients) and the overflow
     counters, as tensors on the batch's device. With ``backbone.dropout``
-    the masks come from :func:`dropout_generator` of ``state.step``."""
+    the masks come from :func:`dropout_generators` of ``state.step``.
+
+    Under data parallel (``parallel/data_parallel.py::
+    make_parallel_train_step``) it is the global batch's step: the losses
+    carry the global denominators, the gradients are summed over the ranks
+    in one all-reduce of one flat buffer, every rank then runs the same
+    optimizer and EMA update, and the metrics are the global batch's."""
     cfg = train_cfg(cfg)
-    generator = None
+    world = DPC.current()
+    generators = None
     if cfg.model.backbone.dropout > 0:
-        generator = dropout_generator(cfg, state.step, batch["points"].device)
-    total, parts, grads, aux = loss_and_grads(cfg, state.model, batch, generator)
+        b = batch["points"].shape[0]
+        first = 0 if world is None else world.rank * b
+        generators = dropout_generators(cfg, state.step, batch["points"].device,
+                                        range(first, first + b))
+    total, parts, grads, aux = loss_and_grads(cfg, state.model, batch, generators)
     params = list(state.model.parameters())
     metrics = dict(parts)
     metrics.update(aux)
     metrics["total"] = total
     with torch.no_grad():
+        if world is not None:
+            DPC.all_reduce_flat_(grads, world)
         metrics["grad_norm"] = global_norm(grads)
         applied = Optimizer(cfg).apply(state.opt_state, params, grads)
         if cfg.train.ema > 0:
@@ -482,5 +518,7 @@ def train_step(cfg: Config, state: TrainState, batch: Dict[str, torch.Tensor]):
             torch._foreach_mul_(state.ema_params, float(d))
             torch._foreach_add_(state.ema_params,
                                 torch._foreach_mul(params, float(np.float32(1) - d)))
+        if world is not None:
+            reduce_metrics(metrics, world)
     state.step += 1
     return state, metrics

@@ -18,10 +18,15 @@ class JsonlLogger:
     **fields}``; a field with ``.item`` (a tensor or numpy scalar) is written
     as a float. TensorBoard is optional: if its writer cannot be imported the
     logger prints one warning line to stderr and goes on with jsonl only.
-    The jsonl lines are the contract.
+    The jsonl lines are the contract. A logger made with ``enabled=False``
+    (a data-parallel rank other than 0) writes nothing anywhere.
     """
 
-    def __init__(self, path: Optional[str] = None, tb_dir: Optional[str] = None):
+    def __init__(self, path: Optional[str] = None, tb_dir: Optional[str] = None,
+                 enabled: bool = True):
+        self.enabled = enabled
+        if not enabled:
+            path = tb_dir = None
         self._fh = open(path, "a") if path else None
         self._t0 = time.time()
         self._tb = None
@@ -36,6 +41,8 @@ class JsonlLogger:
                 self._tb = SummaryWriter(log_dir=tb_dir)
 
     def log(self, kind: str, **fields: Any) -> None:
+        if not self.enabled:
+            return
         rec: Dict[str, Any] = {"kind": kind, "t": round(time.time() - self._t0, 3)}
         rec.update({k: (float(v) if hasattr(v, "item") else v) for k, v in fields.items()})
         line = json.dumps(rec)

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``sparse_rcnn_tpu_torch``
-(the data layer, its C++ host core's binding and the pooling ops included),
+(the data layer, its C++ host core's binding, the pooling ops and the
+data-parallel package ``parallel/`` included),
 ``chip_smoke.py``, the on-card test file and the port's benchmark scripts loads
 neither jax, orbax nor anything of ``sparse_rcnn_tpu`` (checked in a fresh
 interpreter),
@@ -26,7 +27,7 @@ need = {pkg.__name__ + "." + m for m in (
     "models.targets", "models.losses", "models.convert", "models.unet", "models.layers",
     "ops.hierarchy", "ops.rulebook", "eval", "utils.metrics", "utils.logging",
     "train.checkpoint", "train.evaluate", "data.ply", "data.datasets", "native",
-    "ops.pooling")}
+    "ops.pooling", "parallel", "parallel.context", "parallel.data_parallel")}
 from sparse_rcnn_tpu_torch.data.datasets import S3DISDataset, ScanNetDataset, SemanticKITTIDataset
 from sparse_rcnn_tpu_torch.data.pipeline import Loader, device_batches, host_voxelize_scene
 from sparse_rcnn_tpu_torch.data.ply import read_ply, write_ply
@@ -37,6 +38,9 @@ from sparse_rcnn_tpu_torch.models.convert import convert_variables
 from sparse_rcnn_tpu_torch.models.unet import DenseTail, gather_from_grid, scatter_to_grid
 from sparse_rcnn_tpu_torch.models.layers import remat
 from sparse_rcnn_tpu_torch.ops.rulebook import downsample_sites
+from sparse_rcnn_tpu_torch.parallel.context import World, shard_context
+from sparse_rcnn_tpu_torch.parallel.data_parallel import (
+    init, make_parallel_eval_step, make_parallel_train_step, replicate_state)
 assert need <= set(names), sorted(need - set(names))
 import chip_smoke
 import tests.test_torch_kernel_cuda
