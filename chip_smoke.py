@@ -47,9 +47,13 @@ nonzero:
    every sparse conv of one eval forward and every dgrad and wgrad of one
    train step against its plain version, dense-2 against the same weights
    converted to fully sparse in f32 and bf16 on a batch that drops no
-   site, one train step bit-identical run to run and with remat (peak
-   memory of each), the wgrad partials buffer, and warm ms per scene of
-   the eval step and per train step;
+   site, the eval step at batch 2 against each scene alone (packed mask
+   bits, proposal scores and class logits ``torch.equal``: the dense tail
+   convolves one scene at a time), one train step bit-identical run to run
+   and with remat (peak memory of each), the wgrad partials buffer, warm ms
+   per scene of the eval step and per train step, and the eval backbone
+   and the train step with the dense tail's convs one scene at a time
+   against over the whole batch, in turns;
 9. evaluation over a split, checkpoints and the CLIs, config 1 at full
    width on 3 val scenes: ``train.main`` for 4 steps with an eval and a
    checkpoint every 2 (2 ``eval`` lines of 3 scenes, ``_best/best.json``;
@@ -102,17 +106,31 @@ nonzero:
    global batch 2: an f32 step against ``TL.train_step`` on the global
    batch within ``tests/distributed/test_dp.py``'s tolerance, a bf16 one
    within a stated one, the ranks' states bit-equal, the in-training eval's
-   mAP equal to one process's at the ranks' batch of 1 and the packed masks
-   of a val batch bit-equal to its (one process's batch of 2 recorded), the
-   step timed (two processes on one card, not scaling). Records in
+   mAP equal to one process's on the global batch of 2 and the packed masks
+   of a val batch bit-equal to its, the step timed (two processes on one
+   card, not scaling). Records in
    ``dp_*.json`` and ``kernels.json``, figures in a ``data_parallel`` JSON
    line. Alone: ``python3 -c "import chip_smoke as CS; smi =
    CS.card_info(); CS.build(); CS.phase_data_parallel('chiprun_out/dp',
    '_chip_smoke_dp', smi)"``;
-12. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
+12. the tools and the checkpoint form conversion, config 2 at full width:
+   ``train.main --profile`` for 2 steps (its trace parses as JSON and names
+   the three sparse-conv kernels; its size and top kernels printed),
+   ``utils/flops.py::collect_rulebook_stats`` on one batch on the card equal
+   to the CPU's, with the useful forward FLOPs; ``tools/size_capacities``
+   over phase 10's ScanNet files through the host-voxelizing Loader, its
+   report on the card equal to the CPU's; ``tools/preprocess_scannet`` on a
+   raw tree written here; phase 9's dense-3 checkpoint converted by
+   ``tools/convert_checkpoint`` to fully sparse and to dense-2, each
+   restored, its eval against the unconverted one's (dense-2
+   ``torch.equal``, fully sparse within ``DENSE_SPARSE_BF16``) and one step
+   resumed from it through ``train.main --resume``. Figures in a ``tools``
+   JSON line;
+13. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
    under ``config1``, config1_pool_dropout's under ``pool_dropout``;
-   launches of every path under ``launches_by_path``, phase 11's ranks
-   too), then as the last line ``{"ok": true, "device": {...}}``.
+   launches of every path under ``launches_by_path``, phase 11's ranks and
+   phase 12's paths too), then as the last line ``{"ok": true, "device":
+   {...}}``.
 
 TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
 algorithms, so every f32 comparison holds f32 against f32. Detailed
@@ -125,8 +143,8 @@ removed at the end.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
-import dataclasses
 import itertools
 import json
 import os
@@ -151,8 +169,10 @@ from sparse_rcnn_tpu_torch.data import synthetic
 from sparse_rcnn_tpu_torch.data.augment import augment_scene
 from sparse_rcnn_tpu_torch import native
 from sparse_rcnn_tpu_torch.data.pipeline import VOXEL_KEYS, Loader, collate, device_batches
+from sparse_rcnn_tpu_torch.data.ply import write_ply
 from sparse_rcnn_tpu_torch.models.convert import convert_variables, tree_boundary
 from sparse_rcnn_tpu_torch.models.layers import SparseBasicBlock, SparseConv
+from sparse_rcnn_tpu_torch.models import unet as U
 from sparse_rcnn_tpu_torch.models.transfer import from_flax, unflatten_variables
 from sparse_rcnn_tpu_torch.models.unet import scatter_to_grid
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
@@ -161,7 +181,11 @@ from sparse_rcnn_tpu_torch.parallel import context as DPC
 from sparse_rcnn_tpu_torch.parallel import data_parallel as DP
 from sparse_rcnn_tpu_torch.train import checkpoint as CK
 from sparse_rcnn_tpu_torch.train import loop as TL
+from sparse_rcnn_tpu_torch.tools import convert_checkpoint as CC
+from sparse_rcnn_tpu_torch.tools import preprocess_scannet as PPS
+from sparse_rcnn_tpu_torch.tools import size_capacities as SCAP
 from sparse_rcnn_tpu_torch.train.evaluate import fetch_eval_outputs, run_eval
+from sparse_rcnn_tpu_torch.utils import flops as FL
 from sparse_rcnn_tpu_torch.utils.logging import JsonlLogger
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -210,13 +234,17 @@ DENSE_SPARSE_BF16 = 5e-2
 # parameters with BN statistics to tests/distributed/test_dp.py's
 # tolerance. lr is 0 at step 1 of config 5's warmup, so the parameters
 # hold still and the gradients are compared too, through the first Adam
-# moments, of each tensor's largest entry: 2e-2, since cuDNN picks the
-# dense tail's f32 conv algorithms per batch shape (1 scene a rank, 2 in
-# one process; 8.3e-3 measured on the dense tail's weights, 4.3e-3 on the
-# sparse conv below it). bf16, for the record: losses to DENSE_SPARSE_BF16,
-# BN statistics to 1e-3; its gradients are recorded, not held (the dense
-# tail's deepest BN parameters, with gradients near 7e-5, came out 28 %
-# apart: sums in other orders, each rounded to bf16, through some 20 layers)
+# moments, of each tensor's largest entry. With the dense tail one scene at
+# a time, what is left is the order of f32 sums: a rank's partial sums
+# all-reduced against one process's sum over both scenes, in BN statistics
+# and the sparse wgrad. Some dense-tail BN gradients are small sums of
+# large terms (|g| near 1e-4), so their own relative error is large: 2e-2
+# (1.35e-2 measured on an NVIDIA H100 80GB HBM3 at 700 W, whether or not
+# the tail's convs run one scene at a time; 3.0e-5 of the largest gradient
+# of all). bf16: losses to DENSE_SPARSE_BF16, BN statistics to 1e-3,
+# gradients to DENSE_SPARSE_BF16 (1.60e-2 measured on that card with the
+# tail one scene at a time; 0.28 before, when cuDNN picked the tail's bf16
+# algorithms per batch shape)
 CONFIG5 = os.path.join(ROOT, "configs", "config5_v5e8_dp.yaml")
 C5_SET = []
 C5_WORLD2_SET = ["data.num_workers=4"]
@@ -225,7 +253,17 @@ DP_TIMED = 6                    # warm steps timed of each form
 DP_TIMEOUT_S = 480              # each launcher call
 DP_PARAMS_RTOL = 1e-4
 DP_TOL = {"float32": {"loss_rtol": 1e-5, "params_atol": 1e-5, "grads_rel": 2e-2},
-          "bfloat16": {"loss_rtol": DENSE_SPARSE_BF16, "params_atol": 1e-3}}
+          "bfloat16": {"loss_rtol": DENSE_SPARSE_BF16, "params_atol": 1e-3,
+                       "grads_rel": DENSE_SPARSE_BF16}}
+
+# phase 12: the tools and the checkpoint form conversion on config 2.
+# PROFILE_STEPS: train.main --profile's steps; TRACE_KERNELS: the sparse-conv
+# kernels its trace must name; SIZE_SCENES: size_capacities' scenes (phase
+# 10's 4 ScanNet train scenes)
+PROFILE_STEPS = 2
+TRACE_KERNELS = ("sparse_conv_fwd_kernel", "sparse_conv_wgrad_partial_kernel",
+                 "sparse_conv_wgrad_reduce_kernel")
+SIZE_SCENES = 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
 # flop/s per input type (f32 outside the tensor cores)
@@ -1192,6 +1230,67 @@ def timed_steps(fn, items, reps: int) -> dict:
             "n": len(times)}
 
 
+def scene_alone_vs_batch(cfg, model, batch) -> dict:
+    """The eval step on ``batch`` and on each of its scenes alone: packed
+    mask bits, proposal scores and class logits ``torch.equal`` (the dense
+    tail convolves one scene at a time, so no conv sees another shape)."""
+    keys = ("point_mask_bits", "proposal_scores", "cls_logits")
+    both = TL.eval_step(cfg, model, batch)
+    n = batch["points"].shape[0]
+    for b in range(n):
+        alone = TL.eval_step(cfg, model, {k: v[b:b + 1] for k, v in batch.items()})
+        differ = [k for k in keys if not torch.equal(both[k][b:b + 1], alone[k])]
+        if differ:
+            raise AssertionError(f"config 2, scene {b} alone against in a batch of {n}: "
+                                 f"{differ} differ")
+    bits = int(both["point_mask_bits"].numel() * 8)
+    log(f"  eval step at batch {n} against each scene alone ({cfg.model.backbone.dtype}, "
+        f"dense-{cfg.model.backbone.dense_from_scale}): {', '.join(keys)} torch.equal "
+        f"({bits} mask bits)")
+    return {"scenes": n, "mask_bits": bits, "equal": list(keys)}
+
+
+def batched_conv(conv, x, dtype):
+    """The dense tail's conv over the whole batch in one call (how
+    ``models/unet.py::_conv`` ran before it went one scene at a time), kept
+    only to time the two against each other."""
+    xc = x.to(dtype).permute(0, 4, 1, 2, 3)
+    w = conv.weight.to(dtype)
+    if isinstance(conv, torch.nn.ConvTranspose3d):
+        y = torch.nn.functional.conv_transpose3d(xc, w, stride=conv.stride)
+    else:
+        y = torch.nn.functional.conv3d(xc, w, stride=conv.stride, padding=conv.padding)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def dense_tail_cost(cfg, ev, init, eval_batch, train_batch) -> dict:
+    """Warm ms of config 2's eval backbone (dense-2) and train step (dense-3)
+    with the dense tail's convs one scene at a time (the port's) and over
+    the whole batch (``batched_conv``), in turns: batched, per scene, per
+    scene, batched; host clock around synchronised work, medians of 5
+    (backbone) and 2 (step) runs after one."""
+    with torch.no_grad():
+        st, _, scales, _, _ = TL.prepare_inputs(cfg, eval_batch)
+    state = TL.init_state(cfg, model=copy.deepcopy(init))
+    real = U._conv
+    res = {"eval_backbone_ms": {"batched": [], "per_scene": []},
+           "train_step_ms": {"batched": [], "per_scene": []}}
+    for form in ("batched", "per_scene", "per_scene", "batched"):
+        U._conv = batched_conv if form == "batched" else real
+        try:
+            with torch.no_grad():
+                res["eval_backbone_ms"][form].append(timed_steps(
+                    lambda _: ev.backbone(st.feats, scales), [None], reps=5)["median"])
+            res["train_step_ms"][form].append(timed_steps(
+                lambda _: TL.train_step(cfg, state, train_batch), [None], reps=2)["median"])
+        finally:
+            U._conv = real
+    log("  dense tail one scene at a time against the whole batch, warm ms (turns batched, "
+        "per scene, per scene, batched): " + json.dumps(
+            {k: {f: [round(x, 3) for x in v] for f, v in d.items()} for k, d in res.items()}))
+    return res
+
+
 def phase_config2(out_dir: str, tmp_dir: str) -> dict:
     """``tmp_dir``: where ``train.main`` saves its checkpoint (140 MB)."""
     cfg = load_config(CONFIG2, infer.parse_overrides(C2_SET))
@@ -1293,6 +1392,7 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
     require_ok(rep["forward_main_path"], "config-2 forward, main-path inputs")
     rep["dense_vs_sparse"] = dense_vs_sparse(cfg, ev.state_dict(),
                                              batches[rep["counters"][exact[0]]["batch"]])
+    rep["scene_alone_vs_batch"] = scene_alone_vs_batch(cfg, ev, tb[0])
     eval_ms = timed_steps(lambda b: TL.eval_step(cfg, ev, b), tb, reps=4)
     rep["eval_ms_per_scene"] = {k: v / bs if k != "n" else v for k, v in eval_ms.items()}
     log("  eval step, warm ms per scene (host clock, synchronised, 4 runs of each batch "
@@ -1356,6 +1456,9 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
     log("  train step, warm ms per step (host clock, synchronised, 2 runs of each batch "
         "after one): " + json.dumps({k: round(v, 3) for k, v in
                                      rep["train_ms_per_step"].items()}))
+    del state
+    rep["dense_tail_cost"] = dense_tail_cost(cfg, ev, init, TL.to_device(batches[0], DEVICE),
+                                             trb[0])
     return rep
 
 
@@ -2195,7 +2298,7 @@ def dp_world2(out_dir: str, tmp_dir: str) -> dict:
             tol = DP_TOL[dtype]
             if max(loss_rel.values()) > tol["loss_rtol"] or \
                     err["params_bn_excess_abs"] > tol["params_atol"] or \
-                    err["grads_rel_max"] > tol.get("grads_rel", np.inf):
+                    err["grads_rel_max"] > tol["grads_rel"]:
                 raise AssertionError(f"{dtype}: 2 ranks against one process: {r}, "
                                      f"tolerance {tol}")
             del ref
@@ -2218,32 +2321,23 @@ def dp_world2(out_dir: str, tmp_dir: str) -> dict:
         bits = DP.make_parallel_eval_step(cfg, world)(state, vb)["point_mask_bits"].cpu().numpy()
         gathered = DP.gather_to_rank0(bits, world)
         if lead:
-            # one process on the same scenes at a rank's batch of 1: the same
-            # computation, bit for bit; at its own batch of 2 cuDNN may pick
-            # other algorithms for the dense tail's convs (recorded)
+            # one process on the global batch: the same computation, bit for
+            # bit (the dense tail convolves one scene at a time)
             with Loader(cfg, "val", train=False) as loader:
                 whole = TL.to_device(next(loader), device)
             got = np.concatenate(gathered)
-            one = np.concatenate([TL.eval_step(cfg, state, {k: v[b:b + 1] for k, v in
-                                                            whole.items()})["point_mask_bits"]
-                                  .cpu().numpy() for b in range(2)])
-            if not np.array_equal(got, one):
-                raise AssertionError("config5 world-2 packed masks differ from one process's "
-                                     "at batch 1")
             two = TL.eval_step(cfg, state, whole)["point_mask_bits"].cpu().numpy()
-            b1 = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size=1))
-            single = train_cli.evaluate(b1, state, JsonlLogger(enabled=False))
+            if not np.array_equal(got, two):
+                raise AssertionError(
+                    f"config5 world-2 packed masks differ from one process's at the global "
+                    f"batch in {int(np.unpackbits(got ^ two).sum())} of {got.size * 8} bits")
+            single = train_cli.evaluate(cfg, state, JsonlLogger(enabled=False))
             maps = {k: (res[k], single[k]) for k in single if k.startswith(("mAP", "scenes",
                                                                              "semantic"))}
             if any(a != b for a, b in maps.values()):
                 raise AssertionError(f"config5 world-2 eval against one process: {maps}")
-            batch2 = train_cli.evaluate(cfg, state, JsonlLogger(enabled=False))
             rec["eval_vs_one_process"] = maps
             rec["packed_mask_bytes_equal"] = int(got.nbytes)
-            rec["one_process_batch2"] = {
-                "mask_bits_differing": int(np.unpackbits(got ^ two).sum()),
-                "mask_bits": int(got.size * 8),
-                **{k: batch2[k] for k in batch2 if k.startswith(("mAP", "semantic"))}}
         DP.barrier(world)
         with Loader(cfg, seed=cfg.train.seed, threads=False, rank=world.rank,
                     world=2) as loader:
@@ -2354,10 +2448,9 @@ def phase_data_parallel(out_dir: str, tmp_dir: str, smi: str) -> dict:
             f"(worst [name, rel, max |g|] {json.dumps(r['grads_worst'][:3])}) "
             f"(tolerance {json.dumps(DP_TOL[dtype])}); launches rank 0 {r['launches']}, "
             f"rank 1 {w2[1][dtype]['launches']}")
-    log(f"  (b) eval: mAP equal to one process's at batch 1 "
-        f"{json.dumps(lead['eval_vs_one_process'])}; packed masks bit-equal "
-        f"({lead['packed_mask_bytes_equal']} B); one process at batch 2 (cuDNN's dense-tail "
-        f"algorithms per batch shape) {json.dumps(lead['one_process_batch2'])}; the Loader's "
+    log(f"  (b) eval: mAP equal to one process's at the global batch of 2 "
+        f"{json.dumps(lead['eval_vs_one_process'])}; packed masks bit-equal to its "
+        f"({lead['packed_mask_bytes_equal']} B); the Loader's "
         f"ms a scene {json.dumps(lead['loader_ms_per_scene'])}; one gloo "
         f"all-reduce, median ms {json.dumps(lead['gloo_all_reduce_ms'])}; 2-rank step ms (two processes sharing one card, not "
         f"scaling): rank 0 {json.dumps(lead['dp_step_ms'])}, rank 1 "
@@ -2389,6 +2482,255 @@ def phase_data_parallel(out_dir: str, tmp_dir: str, smi: str) -> dict:
     }
     log(f"  {smi}")
     return {"launches": launches, "world1": w1, "world2": w2, "summary": summary}
+
+
+# --------------------------------------------------------------------------
+# phase 12: the tools (--profile, useful FLOPs, capacity sizing, ScanNet
+# preprocessing) and the checkpoint form conversion
+
+
+def trace_summary(path: str) -> dict:
+    """A ``torch.profiler`` Chrome trace: its size, its events, the card's
+    kernels by total time, and how often each of ``TRACE_KERNELS`` ran."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            us, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (us + float(e.get("dur", 0.0)), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"bytes": os.path.getsize(path), "events": len(events),
+            "kernel_launches": sum(n for _, n in by_name.values()),
+            "kernel_ms": sum(us for us, _ in by_name.values()) / 1e3,
+            "top_kernels": [[name[:100], round(us / 1e3, 3), n] for name, (us, n) in top],
+            "sparse_conv_kernels": {k: sum(n for name, (_, n) in by_name.items() if k in name)
+                                    for k in TRACE_KERNELS}}
+
+
+def write_raw_scannet(root: str) -> dict:
+    """Two scans in the official ScanNet layout, as
+    ``tests/e2e/test_preprocess_drill.py::test_scannet_raw_to_train`` writes
+    them (written here with the port's PLY writer): a 3 x 3 m floor slab of
+    nyu40 class 2 (outside the benchmark's 18) and two objects, a chair
+    (nyu40 5, benchmark class 2) and a table (7, class 4), one segment each,
+    both grouped in the aggregation; the scans split into train and val.
+    Returns {scene id: split}."""
+    rng = np.random.default_rng(0)
+    scenes = {"scene0000_00": "train", "scene0001_00": "val"}
+    for sid in scenes:
+        d = os.path.join(root, "scans", sid)
+        os.makedirs(d)
+        pts = [np.column_stack([rng.uniform(0, 3.0, 200), rng.uniform(0, 3.0, 200),
+                                rng.uniform(0, 0.05, 200)])]
+        grp = [np.full(200, -1)]
+        for gi, center in enumerate(((1.0, 1.0, 0.4), (2.2, 2.0, 0.5))):
+            pts.append(np.asarray(center) + rng.uniform(-0.2, 0.2, (120, 3)))
+            grp.append(np.full(120, gi))
+        pts, grp = np.concatenate(pts).astype(np.float32), np.concatenate(grp)
+        rgb = rng.integers(0, 255, (len(pts), 3)).astype(np.uint8)
+        props = {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2], "red": rgb[:, 0],
+                 "green": rgb[:, 1], "blue": rgb[:, 2]}
+        base = os.path.join(d, sid)
+        write_ply(base + "_vh_clean_2.ply", props)
+        nyu = np.where(grp == 0, 5, np.where(grp == 1, 7, 2)).astype(np.uint16)
+        write_ply(base + "_vh_clean_2.labels.ply", {**props, "label": nyu})
+        with open(base + "_vh_clean_2.0.010000.segs.json", "w") as f:
+            json.dump({"segIndices": np.where(grp < 0, 99, grp + 10).tolist()}, f)
+        with open(base + ".aggregation.json", "w") as f:
+            json.dump({"segGroups": [{"segments": [10], "label": "chair"},
+                                     {"segments": [11], "label": "table"}]}, f)
+    os.makedirs(os.path.join(root, "splits"))
+    for split in ("train", "val"):
+        with open(os.path.join(root, "splits", f"scannetv2_{split}.txt"), "w") as f:
+            f.write("\n".join(s for s, sp in scenes.items() if sp == split))
+    return scenes
+
+
+def quiet(fn, argv, path: str):
+    """``fn(argv)`` with its standard output sent to ``path``."""
+    with open(path, "w") as f, contextlib.redirect_stdout(f):
+        return fn(argv)
+
+
+def mask_iou_miss(a: np.ndarray, b: np.ndarray) -> float:
+    """1 - IoU of two packed mask-bit arrays: bits set in one and not the
+    other, over bits set in either."""
+    either = int(np.unpackbits(a | b).sum())
+    return int(np.unpackbits(a ^ b).sum()) / max(either, 1)
+
+
+def phase_tools(out_dir: str, tmp_dir: str, smi: str, c2: dict) -> dict:
+    """Config 2 at full width (phase 8's); ``c2`` is phase 8's record: the
+    tools and the conversion of phase 9's dense-3 checkpoint."""
+    log("[phase 12] the tools and the checkpoint form conversion, config 2 at full width: "
+        f"train.main --profile ({PROFILE_STEPS} steps), collect_rulebook_stats card against "
+        f"CPU, size_capacities over phase 10's ScanNet files card against CPU, "
+        "preprocess_scannet on a raw tree, phase 9's dense-3 checkpoint converted to none "
+        "and to 2")
+    t_phase = time.perf_counter()
+    n_eval, n_train = c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"]
+    cfg = load_config(CONFIG2, infer.parse_overrides(C2_SET))
+    rep = {"launches": {}, "card": smi}
+
+    # a. train.main --profile: a trace of the loop that names the kernels
+    ckp = os.path.join(tmp_dir, "phase12_profile")
+    log_path = os.path.join(out_dir, "train_log_config2_profile.jsonl")
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    sets = sum((["--set", x] for x in C2_SET), [])
+    t0 = time.perf_counter()
+    _, got = run_cli(train_cli.main, ["--config", CONFIG2, *sets, "--set",
+                                      f"train.total_steps={PROFILE_STEPS}", "--set",
+                                      "train.log_every=1", "--set",
+                                      f"train.checkpoint_dir={ckp}", "--device", DEVICE,
+                                      "--profile", "--log-file", log_path],
+                     f"config2 train.main --profile, {PROFILE_STEPS} steps")
+    wall = time.perf_counter() - t0
+    expect(got, (PROFILE_STEPS * n_train, PROFILE_STEPS * (n_train - 1),
+                 PROFILE_STEPS * n_train), "config2 train.main --profile launches")
+    rep["launches"][f"config2 train.main --profile ({PROFILE_STEPS} steps)"] = got
+    train_losses(log_path, PROFILE_STEPS, "config2 train.main --profile")
+    traces = [r["trace"] for r in jsonl(log_path) if r["kind"] == "profile"]
+    if len(traces) != 1 or os.path.dirname(traces[0]) != os.path.join(ckp, "profile") or \
+            not os.path.isfile(traces[0]):
+        raise AssertionError(f"train.main --profile: trace lines {traces}")
+    summ = trace_summary(traces[0])
+    missing = [k for k, n in summ["sparse_conv_kernels"].items() if not n]
+    if missing:
+        raise AssertionError(f"the --profile trace names no {missing}")
+    rep["profile"] = {"train_main_s": wall, **summ}
+    log(f"  trace {os.path.basename(traces[0])}: {summ['bytes']} bytes, {summ['events']} "
+        f"events, {summ['kernel_launches']} kernels of {summ['kernel_ms']:.1f} ms card time "
+        f"over {PROFILE_STEPS} steps (train.main {wall:.1f} s with the export); sparse-conv "
+        f"kernels by name {json.dumps(summ['sparse_conv_kernels'])}")
+    log("  top kernels of the trace [name, ms, launches]: " + json.dumps(summ["top_kernels"]))
+    shutil.rmtree(ckp, ignore_errors=True)
+
+    # b. useful FLOPs: rulebook statistics of one batch, card against CPU
+    batch = collate(config2_scenes(cfg, cfg.data.batch_size))
+    t0 = time.perf_counter()
+    stats = FL.collect_rulebook_stats(cfg, batch, DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats_cpu = FL.collect_rulebook_stats(cfg, batch, "cpu")
+    t2 = time.perf_counter()
+    if stats != stats_cpu:
+        raise AssertionError(f"collect_rulebook_stats card {stats} against CPU {stats_cpu}")
+    flops = FL.useful_forward_flops(cfg, stats)
+    eval_ms = c2["eval_ms_per_scene"]["median"] * cfg.data.batch_size
+    rep["flops"] = {"stats": stats, "useful_forward_flops_per_batch": flops,
+                    "card_s": t1 - t0, "cpu_s": t2 - t1,
+                    "eval_step_ms_per_batch": eval_ms,
+                    "useful_tflops_per_s_at_eval_step": flops / eval_ms / 1e9}
+    log(f"  collect_rulebook_stats (bench scenes, batch {cfg.data.batch_size}): card equal to "
+        f"CPU {json.dumps(stats)} ({t1 - t0:.1f} s and {t2 - t1:.1f} s); useful forward "
+        f"FLOPs per batch {flops:.6e}, {flops / eval_ms / 1e9:.3f} TFLOP/s over phase 8's "
+        f"eval step ({eval_ms:.3f} ms a batch, hierarchy and heads included)")
+
+    # c. size_capacities over phase 10's ScanNet files, card against CPU
+    args = ["--config", CONFIG2, "--set", f"data.data_root={scannet_root(tmp_dir)}",
+            *sum((["--set", x] for x in C2_DATA_SET + C2_LOADER_SET), []),
+            "--scenes", str(SIZE_SCENES)]
+    reports = {dev: quiet(SCAP.main, args + ["--device", dev],
+                          os.path.join(out_dir, f"size_capacities_{dev}.json"))
+               for dev in (DEVICE, "cpu")}
+    if reports[DEVICE] != reports["cpu"]:
+        raise AssertionError(f"size_capacities card {reports[DEVICE]} against CPU "
+                             f"{reports['cpu']}")
+    rep["size_capacities"] = reports[DEVICE]
+    log(f"  size_capacities, {SIZE_SCENES} augmented ScanNet train scenes through the "
+        "host-voxelizing Loader: card report equal to CPU's; per scale [max sites, cap, "
+        "suggested]: " + json.dumps([[r["max_sites"], r["cap"], r["suggested"]]
+                                     for r in reports[DEVICE]["scales"]])
+        + f", span {reports[DEVICE]['max_span_cells']} of grid "
+          f"{reports[DEVICE]['grid_extent']}")
+
+    # d. preprocess_scannet on a raw tree, without JAX
+    raw, pre = os.path.join(tmp_dir, "scannet_raw"), os.path.join(tmp_dir, "scannet_pre")
+    scenes = write_raw_scannet(raw)
+    quiet(PPS.main, ["--raw", raw, "--out", pre, "--splits-dir", os.path.join(raw, "splits")],
+          os.path.join(out_dir, "preprocess_scannet.log"))
+    for sid, split in scenes.items():
+        with np.load(os.path.join(pre, split, sid + ".npz")) as z:
+            inst, sem = z["instance"], z["semantic"]
+            if sorted(z.files) != ["feats", "instance", "points", "semantic"] or \
+                    set(np.unique(inst)) != {-1, 0, 1} or set(np.unique(sem)) != {-1, 2, 4} \
+                    or any(len(set(sem[inst == i])) != 1 for i in (0, 1)):
+                raise AssertionError(f"preprocess_scannet {split}/{sid}: {z.files}, instances "
+                                     f"{np.unique(inst)}, classes {np.unique(sem)}")
+    log(f"  preprocess_scannet: {len(scenes)} raw scans to {pre}, instances {{-1, 0, 1}}, "
+        "classes {-1, 2, 4} (chair, table), one class an instance")
+
+    # e. phase 9's dense-3 checkpoint converted to none and to 2, restored,
+    # scored against the unconverted eval, and resumed for a step
+    ck2 = os.path.join(tmp_dir, "ckpt_config2")
+    base = C2_SET + C2_EVAL_SET + [f"train.checkpoint_dir={ck2}"]
+    cfg2 = load_config(CONFIG2, infer.parse_overrides(base))
+    src = CK.restore(CK.make_manager(ck2), TL.init_state(cfg2, DEVICE))
+    if src is None or src.model.backbone.dense_from_scale != 3:
+        raise AssertionError("phase 9's config-2 checkpoint is missing or not dense-3")
+    val = TL.to_device(next(val_batches(cfg2)), DEVICE)
+    ref = TL.eval_step(cfg2, src, val)
+    rep["conversion"] = {}
+    for to in ("none", "2"):
+        to_s0 = None if to == "none" else int(to)
+        out = os.path.join(tmp_dir, f"ckpt_config2_to_{to}")
+        _, got = run_cli(CC.main, ["--config", CONFIG2, *sum((["--set", x] for x in base), []),
+                                   "--to-dense", to, "--out-dir", out, "--device", DEVICE],
+                         f"convert_checkpoint --to-dense {to}")
+        expect(got, (0, 0, 0), "convert_checkpoint launches")
+        tsets = base + CC.form_overrides(to_s0) + [f"train.checkpoint_dir={out}"]
+        tcfg = load_config(CONFIG2, infer.parse_overrides(tsets))
+        conv = CK.restore(CK.make_manager(out), TL.init_state(tcfg, DEVICE))
+        if conv is None or (conv.step, conv.model.backbone.dense_from_scale) != (src.step,
+                                                                                 to_s0):
+            raise AssertionError(f"converted checkpoint {out}: {conv and conv.step}")
+        res = TL.eval_step(tcfg, conv, val)
+        bits = {k: r["point_mask_bits"].cpu().numpy() for k, r in (("ref", ref), ("got", res))}
+        rel = {k: float((res[k].float() - ref[k].float()).abs().max()
+                        / ref[k].float().abs().max().clamp(min=1e-30))
+               for k in ("proposal_scores", "cls_logits")}
+        miss = mask_iou_miss(bits["ref"], bits["got"])
+        rec = {"mask_bits_one_minus_iou": miss, **{f"{k}_rel": v for k, v in rel.items()},
+               "mask_bits_differing": int(np.unpackbits(bits["ref"] ^ bits["got"]).sum())}
+        if to_s0 == cfg2.model.backbone.dense_from_scale:
+            # the eval form itself: the computation the unconverted eval runs
+            same = all(torch.equal(res[k], ref[k]) for k in ("point_mask_bits",
+                                                              "proposal_scores", "cls_logits"))
+            if not same:
+                raise AssertionError(f"converted to dense-{to}: eval differs from the "
+                                     f"unconverted eval {rec}")
+        elif miss > DENSE_SPARSE_BF16 or max(rel.values()) > DENSE_SPARSE_BF16:
+            raise AssertionError(f"converted to {to}: eval against the unconverted {rec}, "
+                                 f"tolerance {DENSE_SPARSE_BF16}")
+        n_e, n_t, n_f = form_convs(tcfg)
+        log_path = os.path.join(out_dir, f"train_log_config2_to_{to}.jsonl")
+        if os.path.exists(log_path):
+            os.remove(log_path)
+        _, got = run_cli(train_cli.main, ["--config", CONFIG2,
+                                          *sum((["--set", x] for x in tsets), []),
+                                          "--set", f"train.total_steps={src.step + 1}",
+                                          "--resume", "--device", DEVICE,
+                                          "--log-file", log_path],
+                         f"config2 converted to {to}: train.main --resume, one step")
+        expect(got, (n_f, n_t - 1, n_t), f"config2 converted to {to} resumed step launches")
+        lines = jsonl(log_path)
+        if [r["step"] for r in lines if r["kind"] == "resume"] != [src.step]:
+            raise AssertionError(f"converted to {to}: resume lines {lines}")
+        rec["resumed_step"] = train_losses(log_path, 1, f"config2 converted to {to}")[0]
+        rec["launches_resumed_step"] = got
+        rep["launches"][f"config2 converted to {to}: train.main --resume (1 step)"] = got
+        rep["conversion"][to] = rec
+        log(f"  converted to {to} (dense_from_scale {to_s0}): eval against the unconverted "
+            f"{json.dumps({k: v for k, v in rec.items() if k not in ('resumed_step', 'launches_resumed_step')})} "
+            f"(dense-2 torch.equal, none within {DENSE_SPARSE_BF16}); resumed step "
+            f"{src.step + 1} losses " + json.dumps({k: round(v, 5) for k, v in
+                                                    rec["resumed_step"].items()}))
+        shutil.rmtree(out, ignore_errors=True)
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12 took {rep['phase_s']:.1f} s; {smi}")
+    return rep
 
 
 def totals(main_path) -> dict:
@@ -2457,6 +2799,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     p9 = phase_eval_checkpoints(args.out_dir, tmp_dir, smi, c2_convs)
     p10 = phase_data_layer(args.out_dir, tmp_dir, smi, c2_convs)
     p11 = phase_data_parallel(args.out_dir, tmp_dir, smi)
+    p12 = phase_tools(args.out_dir, tmp_dir, smi, c2)
 
     src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
     records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
@@ -2465,7 +2808,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
              f"config1 train.main ({TRAIN_STEPS} steps)": train["launches"],
              "config2 infer.main (1 batch)": c2["launches_infer"],
              f"config2 train.main ({C2_TRAIN_STEPS} steps)": c2["launches_train"],
-             **p9["launches"], **p10["launches"], **p11["launches"]}
+             **p9["launches"], **p10["launches"], **p11["launches"], **p12["launches"]}
     pool = p10["pool_main_path"]
     n_eval, n_train = c2["sparse_convs"]["eval"], c2["sparse_convs"]["train"]
     kernels = {"kernels": [
@@ -2502,15 +2845,23 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
               "backward_random": bwd_recs, "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
               "train": train, "golden_train": golden_train, "config2": c2,
-              "eval_checkpoints": p9, "data_layer": p10, "data_parallel": p11}
+              "eval_checkpoints": p9, "data_layer": p10, "data_parallel": p11, "tools": p12}
     with open(os.path.join(args.out_dir, "kernels.json"), "w") as f:
         json.dump(record, f, indent=1)
-    log(f"[phase 12] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[phase 13] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"eval_checkpoints": {k: p9[k] for k in (
         "card", "eval_split_per_scene", "config2_fetch", "config2_checkpoint",
         "card_vs_cpu_max_abs_diff")}}))
     print(json.dumps({"data_layer": p10["summary"]}))
     print(json.dumps({"data_parallel": p11["summary"]}))
+    print(json.dumps({"tools": {"card": smi, "phase_s": p12["phase_s"],
+                                "profile": {k: p12["profile"][k] for k in (
+        "bytes", "events", "kernel_launches", "kernel_ms", "sparse_conv_kernels")},
+        "flops": {k: p12["flops"][k] for k in ("useful_forward_flops_per_batch",
+                                                "useful_tflops_per_s_at_eval_step")},
+        "conversion": {k: {m: v for m, v in r.items() if m != "resumed_step"}
+                       for k, r in p12["conversion"].items()},
+        "dense_tail_cost": c2["dense_tail_cost"]}}))
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

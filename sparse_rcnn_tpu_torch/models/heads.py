@@ -41,21 +41,30 @@ class RoIHead(nn.Module):
         self.mask_pred = nn.Conv3d(h, 1, 1)
 
     def forward(self, roi_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        b, p, d = roi_feats.shape[:3]
+        """Each scene's RoIs go through the head alone: cuDNN and cuBLAS
+        pick their algorithms, and with them the order of a sum, by the
+        shapes they are given, so a call over the whole batch would make a
+        scene's logits depend on the other scenes in it."""
+        outs = [self._scene(x) for x in roi_feats]
+        return torch.stack([c for c, _ in outs]), torch.stack([m for _, m in outs])
+
+    def _scene(self, roi_feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[P, D, D, D, C] → (cls_logits [P, K+1], mask_logits [P, 2D, 2D, 2D])."""
+        p, d = roi_feats.shape[:2]
         cd = self.dtype
-        x = roi_feats.reshape(b * p, d, d, d, roi_feats.shape[-1]).permute(0, 4, 1, 2, 3)
+        x = roi_feats.permute(0, 4, 1, 2, 3)
         x = torch.relu(_conv3d(self.conv1, x, cd))
         x = torch.relu(_conv3d(self.conv2, x, cd))
 
-        pooled = x.mean(dim=(2, 3, 4))                            # [B*P, h]
-        cls_logits = self.cls(pooled).reshape(b, p, self.num_classes + 1)
+        pooled = x.mean(dim=(2, 3, 4))                            # [P, h]
+        cls_logits = self.cls(pooled)
 
         up = self.up
         m = nn.functional.conv_transpose3d(x.to(cd), up.weight.to(cd), up.bias.to(cd),
                                            stride=2)
         m = _conv3d(self.mask_pred, torch.relu(m), torch.float32)
         dm = 2 * d
-        return cls_logits, m.reshape(b, p, dm, dm, dm)
+        return cls_logits, m.reshape(p, dm, dm, dm)
 
 
 def sample_mask_at_positions(mask_logits: torch.Tensor, boxes: torch.Tensor,

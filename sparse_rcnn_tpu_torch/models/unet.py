@@ -124,14 +124,20 @@ def gather_from_grid(grid: torch.Tensor, coords: torch.Tensor,
 def _conv(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``conv`` (an ``nn.Conv3d`` or ``nn.ConvTranspose3d`` without bias) on
     x [B, X, Y, Z, C] in ``dtype`` (flax's ``nn.Conv(dtype=...)``): the
-    parameters stay f32, the inputs and the product are cast."""
-    xc = x.to(dtype).permute(0, 4, 1, 2, 3)
+    parameters stay f32, the inputs and the product are cast.
+
+    Each scene is convolved alone, as a batch of 1: the conv libraries pick
+    their algorithm, and with it the order of a sum, by the batch's shape,
+    so a batched call would make a scene's result depend on the other
+    scenes in the batch (the JAX package's is bit-equal alone or batched)."""
     w = conv.weight.to(dtype)
-    if isinstance(conv, nn.ConvTranspose3d):
-        y = nn.functional.conv_transpose3d(xc, w, stride=conv.stride)
-    else:
-        y = nn.functional.conv3d(xc, w, stride=conv.stride, padding=conv.padding)
-    return y.permute(0, 2, 3, 4, 1)
+    outs = []
+    for xb in x.to(dtype).permute(0, 4, 1, 2, 3).split(1):
+        if isinstance(conv, nn.ConvTranspose3d):
+            outs.append(nn.functional.conv_transpose3d(xb, w, stride=conv.stride))
+        else:
+            outs.append(nn.functional.conv3d(xb, w, stride=conv.stride, padding=conv.padding))
+    return torch.cat(outs).permute(0, 2, 3, 4, 1)
 
 
 def _bn(bn: MaskedBatchNorm, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ at ``train.seed`` on a resume, as the JAX trainer's does). jsonl lines, also
 appended to ``--log-file`` and mirrored to ``--tensorboard``:
 
 - ``train`` every ``train.log_every`` steps and at the last: loss parts,
-  gradient norm, overflow counters, scenes per second;
+  gradient norm, overflow counters, scenes per second over the last 20
+  steps (``utils/profiling.py::StepTimer``);
 - ``eval`` every ``train.eval_every`` steps: ``run_eval`` over the leading
   ``min(train.eval_scenes, val split)`` val scenes (the EMA weights with
   ``train.ema > 0``, then an ``eval_raw`` line of the raw weights); a better
@@ -23,12 +24,15 @@ appended to ``--log-file`` and mirrored to ``--tensorboard``:
   end;
 - ``loader`` at the end: the seconds the steps waited for a batch
   (``wait_s``), ``batches_out``, and the workers' seconds in the host
-  voxelizer (``voxelize_s``, ``scenes_voxelized``).
+  voxelizer (``voxelize_s``, ``scenes_voxelized``);
+- ``profile`` with ``--profile``: the path of the ``torch.profiler`` trace
+  of the training loop (host operations and the card's kernels and copies;
+  Chrome/Perfetto JSON) written into ``<checkpoint_dir>/profile/``.
 
 A ``trainer.pid`` file in ``train.checkpoint_dir`` refuses a second live
 trainer on the same directory; a stale one is reclaimed. On the card, TF32
 is off (an f32 config computes in f32) and cuDNN runs its deterministic
-algorithms. ``--profile`` waits for ROADMAP §1 item 13.
+algorithms.
 
 Data parallel, one process per device (``parallel/data_parallel.py``)::
 
@@ -51,7 +55,6 @@ import argparse
 import contextlib
 import functools
 import os
-import time
 from typing import Optional
 
 import torch
@@ -63,6 +66,7 @@ from ..infer import parse_overrides, setup_device
 from ..parallel import data_parallel as DP
 from ..parallel.context import World, shard_context
 from ..utils.logging import JsonlLogger
+from ..utils.profiling import StepTimer, maybe_trace
 from . import checkpoint as CK
 from . import loop as TL
 from .evaluate import run_eval
@@ -123,8 +127,7 @@ def evaluate(cfg: Config, state: TL.TrainState, log: JsonlLogger,
 def main(argv=None) -> TL.TrainState:
     ap = argparse.ArgumentParser(
         description="Train the port, with checkpoints, in-training eval and resume, on one "
-                    "device or data-parallel under python -m torch.distributed.run "
-                    "(--profile waits for ROADMAP §1 item 13).")
+                    "device or data-parallel under python -m torch.distributed.run.")
     ap.add_argument("--config", default=None)
     ap.add_argument("--set", action="append", dest="overrides", metavar="key.path=value")
     ap.add_argument("--resume", action="store_true",
@@ -137,6 +140,9 @@ def main(argv=None) -> TL.TrainState:
     ap.add_argument("--dist-init", default="env://",
                     help="init_method of the process group (env:// reads MASTER_ADDR and "
                          "MASTER_PORT; file://PATH needs no port)")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the training loop with torch.profiler into "
+                         "<checkpoint_dir>/profile/ (Chrome/Perfetto JSON)")
     ap.add_argument("--log-file", default=None, help="append the jsonl lines here too")
     ap.add_argument("--tensorboard", default=None, metavar="DIR",
                     help="mirror numeric metrics to TensorBoard event files")
@@ -183,18 +189,18 @@ def train(cfg: Config, device: torch.device, args,
     step_fn = (functools.partial(TL.train_step, cfg) if world is None
                else DP.make_parallel_train_step(cfg, world))
     share = {} if world is None else {"rank": world.rank, "world": world.size}
-    t_last, step_last = time.perf_counter(), state.step
-    with Loader(cfg, "train", seed=cfg.train.seed, **share) as loader:
+    timer = StepTimer(cfg.data.batch_size)
+    trace_dir = os.path.join(ckpt_dir, "profile")
+    with Loader(cfg, "train", seed=cfg.train.seed, **share) as loader, \
+            maybe_trace(args.profile, trace_dir) as trace:
         stream = device_batches(loader, device, TL.TRAIN_KEYS)
         while state.step < cfg.train.total_steps:
             _, batch = next(stream)
             state, metrics = step_fn(state, batch)
             step = state.step
+            sps = timer.tick()
             if step % cfg.train.log_every == 0 or step == cfg.train.total_steps:
                 metrics = {k: float(v) for k, v in metrics.items()}    # waits for the card
-                now = time.perf_counter()
-                sps = (step - step_last) * cfg.data.batch_size / (now - t_last)
-                t_last, step_last = now, step
                 log.log("train", step=step, scenes_per_sec=round(sps, 2), **metrics)
             if step % cfg.train.eval_every == 0:
                 res = evaluate(cfg, state, log, world)
@@ -215,6 +221,8 @@ def train(cfg: Config, device: torch.device, args,
                 voxelize_s=loader.voxelize_s, scenes_voxelized=loader.scenes_voxelized,
                 **({} if world is None else {"replay_s": loader.replay_s,
                                              "scenes_replayed": loader.scenes_replayed}))
+    if trace is not None:
+        log.log("profile", trace=trace)
     if lead:
         CK.save(mgr, state)
     DP.barrier(world)

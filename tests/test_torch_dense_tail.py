@@ -311,3 +311,30 @@ def test_dense1_train_step_matches_jax():
     sd = model.state_dict()
     for k, v in from_flax({}, jstats).items():
         np.testing.assert_allclose(sd[k].numpy(), v.numpy(), err_msg=k, **TOL)
+
+
+# the eval form (dense-1) and the train form (dense-2) of one per-mode config
+FORMS_CFG = {**OVERRIDES, "model": {**OVERRIDES["model"], "backbone": {
+    **OVERRIDES["model"]["backbone"], "dense_from_scale_train": 2}}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ["eval", "train"])
+def test_scene_alone_equals_scene_in_batch(dtype, form):
+    """With a dense tail, each scene's eval outputs at batch 2 are
+    ``torch.equal`` to that scene run alone, as the JAX package's are: the
+    tail's convs see one scene at a time, so the conv library cannot pick
+    another algorithm (another order of sums) for another batch shape."""
+    cfg = load_config(overrides={**FORMS_CFG, "model": {**FORMS_CFG["model"], "backbone": {
+        **FORMS_CFG["model"]["backbone"], "dtype": dtype}}})
+    if form == "train":
+        cfg = TL.train_cfg(cfg)
+    assert cfg.model.backbone.dense_from_scale == (1 if form == "eval" else 2)
+    model = TL.build_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    batch = TL.to_device(_batch(SCENE), "cpu")
+    both = TL.eval_step(cfg, model, batch)
+    for b in range(2):
+        alone = TL.eval_step(cfg, model, {k: v[b:b + 1] for k, v in batch.items()})
+        for key in ("point_mask_logits", "proposal_scores", "cls_logits"):
+            assert both[key].dtype == alone[key].dtype
+            assert torch.equal(both[key][b:b + 1], alone[key]), (key, b)

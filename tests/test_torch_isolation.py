@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``sparse_rcnn_tpu_torch``
-(the data layer, its C++ host core's binding, the pooling ops and the
-data-parallel package ``parallel/`` included),
+(the data layer, its C++ host core's binding, the pooling ops, the
+data-parallel package ``parallel/``, the profiling and FLOP utilities and the
+tools included),
 ``chip_smoke.py``, the on-card test file and the port's benchmark scripts loads
 neither jax, orbax nor anything of ``sparse_rcnn_tpu`` (checked in a fresh
 interpreter),
@@ -27,7 +28,9 @@ need = {pkg.__name__ + "." + m for m in (
     "models.targets", "models.losses", "models.convert", "models.unet", "models.layers",
     "ops.hierarchy", "ops.rulebook", "eval", "utils.metrics", "utils.logging",
     "train.checkpoint", "train.evaluate", "data.ply", "data.datasets", "native",
-    "ops.pooling", "parallel", "parallel.context", "parallel.data_parallel")}
+    "ops.pooling", "parallel", "parallel.context", "parallel.data_parallel",
+    "utils.profiling", "utils.flops", "tools", "tools.size_capacities",
+    "tools.preprocess_scannet", "tools.convert_checkpoint")}
 from sparse_rcnn_tpu_torch.data.datasets import S3DISDataset, ScanNetDataset, SemanticKITTIDataset
 from sparse_rcnn_tpu_torch.data.pipeline import Loader, device_batches, host_voxelize_scene
 from sparse_rcnn_tpu_torch.data.ply import read_ply, write_ply
@@ -41,6 +44,11 @@ from sparse_rcnn_tpu_torch.ops.rulebook import downsample_sites
 from sparse_rcnn_tpu_torch.parallel.context import World, shard_context
 from sparse_rcnn_tpu_torch.parallel.data_parallel import (
     init, make_parallel_eval_step, make_parallel_train_step, replicate_state)
+from sparse_rcnn_tpu_torch.utils.profiling import StepTimer, maybe_trace
+from sparse_rcnn_tpu_torch.utils.flops import collect_rulebook_stats, useful_forward_flops
+from sparse_rcnn_tpu_torch.tools.size_capacities import main as size_main
+from sparse_rcnn_tpu_torch.tools.preprocess_scannet import process_scene
+from sparse_rcnn_tpu_torch.tools.convert_checkpoint import convert_state
 assert need <= set(names), sorted(need - set(names))
 import chip_smoke
 import tests.test_torch_kernel_cuda
@@ -71,7 +79,16 @@ def test_port_imports_no_jax():
 def test_train_cli_help():
     res = _run(["-m", "sparse_rcnn_tpu_torch.train", "--help"])
     assert res.returncode == 0, res.stderr
-    assert "--log-file" in res.stdout and "ROADMAP" in res.stdout
+    assert "--log-file" in res.stdout and "--profile" in res.stdout
+    assert "ROADMAP" not in res.stdout
+
+
+@pytest.mark.parametrize("tool", ["size_capacities", "preprocess_scannet",
+                                  "convert_checkpoint"])
+def test_tool_cli_help(tool):
+    res = _run(["-m", f"sparse_rcnn_tpu_torch.tools.{tool}", "--help"])
+    assert res.returncode == 0, res.stderr
+    assert "--config" in res.stdout or "--raw" in res.stdout
 
 
 def test_chip_smoke_help():
