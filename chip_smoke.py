@@ -44,8 +44,8 @@ nonzero:
    cropped): one scene's integer tables and dense occupancy bit-exact
    against the CPU, the overflow counters (0) and ``dense_tail_oob``
    against a count of the dropped sites made in numpy from the points,
-   every sparse conv of one eval forward and every dgrad and wgrad of one
-   train step against its plain version, dense-2 against the same weights
+   every sparse conv of one eval forward and every forward, dgrad and
+   wgrad of one train step against its plain version, dense-2 against the same weights
    converted to fully sparse in f32 and bf16 on a batch that drops no
    site, the eval step at batch 2 against each scene alone (packed mask
    bits, proposal scores and class logits ``torch.equal``: the dense tail
@@ -71,7 +71,19 @@ nonzero:
    warm eval split per scene of both configs, the bytes a config-2 batch
    fetches against its f32 logits, the config-2 checkpoint's size and save
    and restore ms, and the card's name and power limit, in an
-   ``eval_checkpoints`` JSON line;
+   ``eval_checkpoints`` JSON line. Then ``run_eval``'s one-batch lookahead,
+   for config 1 and config 2 (dense-2) each: the whole eval step under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any host read raises) after
+   a count of its syncs under ``"warn"`` (none), the gap from the step's
+   return to the completion of an event recorded after it (the device work
+   left for the host to overlap) with the host's ms to the return and the
+   card's ms; ``run_eval`` against a plain sequential loop written here
+   (step, wait, fetch, score: the pass before the lookahead) over the same
+   weights and 6 val scenes, in turns: packed mask bits ``torch.equal``,
+   mAP, per-scene mAP and scene count equal, both passes' wall, wait,
+   fetch and host seconds a scene, and the lookahead pass's peak memory at
+   most one eval step's peak plus one batch's inputs (no two steps'
+   outputs live at once);
 10. the data layer and the pooled backbone at full width: each reader's
    files written into the temporary directory from the port's generator
    (ScanNet ``.npz`` and ``.pth`` scenes of 300000 points, 4 train and 3
@@ -161,6 +173,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import sparse_rcnn_tpu_torch.train.__main__ as train_cli
+from benchmarks import eval_step_syncs as SYNCS
 from benchmarks import profile_torch_slice as PROF
 from sparse_rcnn_tpu_torch import eval as eval_cli
 from sparse_rcnn_tpu_torch import infer
@@ -180,6 +193,7 @@ from sparse_rcnn_tpu_torch.ops import voxelize as V
 from sparse_rcnn_tpu_torch.parallel import context as DPC
 from sparse_rcnn_tpu_torch.parallel import data_parallel as DP
 from sparse_rcnn_tpu_torch.train import checkpoint as CK
+from sparse_rcnn_tpu_torch.train import evaluate as EV
 from sparse_rcnn_tpu_torch.train import loop as TL
 from sparse_rcnn_tpu_torch.tools import convert_checkpoint as CC
 from sparse_rcnn_tpu_torch.tools import preprocess_scannet as PPS
@@ -206,6 +220,12 @@ C1_EVAL_SET = [f"data.val_scenes={EVAL_SCENES}", "train.eval_every=2",
 C2_EVAL_SET = [f"data.val_scenes={EVAL_SCENES}", "train.eval_every=2",
                "train.checkpoint_every=1", f"train.eval_scenes={EVAL_SCENES}",
                "train.log_every=1"]
+# phase 9's lookahead check: run_eval against a plain sequential pass over
+# LOOKAHEAD_SCENES val scenes made beforehand, in turns (sequential,
+# lookahead, lookahead, sequential); the eval step under the sync check,
+# and GAP_REPS timed returns of each of two batches
+LOOKAHEAD_SCENES = 6
+GAP_REPS = 3
 # phase 10: the data layer and the pooled backbone. The readers' files hold
 # more points than the configs' capacities (ScanNet and S3DIS scenes are
 # subsampled); the KITTI sweeps fit. *_SET: extra overrides of each config
@@ -636,24 +656,29 @@ def check_ties() -> None:
         "the lower index, as numpy and lax.top_k/jnp.argmax do")
 
 
-def capture(fn, name: str) -> list:
+def capture(fn, *names: str) -> list:
     """Run ``fn`` and return the arguments of every call it makes to
     ``sc.<name>`` (``conv_forward``, ``conv_dgrad`` or ``conv_wgrad``, the
-    dispatchers of the sparse conv's autograd Function). The calls still
-    launch the kernels."""
-    calls = []
-    real = getattr(sc, name)
+    dispatchers of the sparse conv's autograd Function): a list of calls,
+    or with several names one such list for each. The calls still launch
+    the kernels."""
+    calls = {name: [] for name in names}
+    real = {name: getattr(sc, name) for name in names}
 
-    def recording(*args):
-        calls.append(args)
-        return real(*args)
+    def recording(name):
+        def record(*args):
+            calls[name].append(args)
+            return real[name](*args)
+        return record
 
-    setattr(sc, name, recording)
+    for name in names:
+        setattr(sc, name, recording(name))
     try:
         fn()
     finally:
-        setattr(sc, name, real)
-    return calls
+        for name in names:
+            setattr(sc, name, real[name])
+    return calls[names[0]] if len(names) == 1 else [calls[name] for name in names]
 
 
 def main_path_convs(cfg, model, batch) -> list:
@@ -947,9 +972,8 @@ def step_split(cfg, state, batch, reps: int = 5) -> dict:
 def main_path_backward(cfg, model, batch) -> tuple:
     """The dgrad and wgrad kernels against their plain versions, timed, on
     the inputs that one config-1 train step's backward gives them."""
-    dg = []
-    wg = capture(lambda: dg.extend(capture(
-        lambda: TL.loss_and_grads(cfg, model, batch), "conv_dgrad")), "conv_wgrad")
+    dg, wg = capture(lambda: TL.loss_and_grads(cfg, model, batch), "conv_dgrad",
+                     "conv_wgrad")
     if (len(dg), len(wg)) != PER_STEP[1:]:
         raise AssertionError(f"{len(dg)} dgrad and {len(wg)} wgrad calls in one step")
     log("  dgrad and wgrad kernels vs plain versions on the inputs of the main path "
@@ -1400,28 +1424,35 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
                                      rep["eval_ms_per_scene"].items()}))
     del tb, calls
 
-    # train: the backward kernels on one step's inputs, run to run, remat
+    # train: the kernels on one step's inputs, run to run, remat
     trb = [TL.to_device(b, DEVICE, TL.TRAIN_KEYS) for b in batches]
-    dg = []
-    wg = capture(lambda: dg.extend(capture(
-        lambda: TL.loss_and_grads(tcfg, copy.deepcopy(init), trb[0]), "conv_dgrad")),
-        "conv_wgrad")
-    if (len(dg), len(wg)) != (n_train - 1, n_train):
-        raise AssertionError(f"{len(dg)} dgrad and {len(wg)} wgrad calls in one step")
-    log(f"  dgrad and wgrad kernels vs plain versions on the inputs of one config-2 train "
-        f"step ({len(dg)} and {len(wg)} calls, bf16; tolerances as in phase 3)")
+    fw, dg, wg = capture(lambda: TL.loss_and_grads(tcfg, copy.deepcopy(init), trb[0]),
+                         "conv_forward", "conv_dgrad", "conv_wgrad")
+    if (len(fw), len(dg), len(wg)) != (n_train, n_train - 1, n_train):
+        raise AssertionError(f"{len(fw)} forward, {len(dg)} dgrad and {len(wg)} wgrad calls "
+                             "in one step")
+    log(f"  forward, dgrad and wgrad kernels vs plain versions on the inputs of one config-2 "
+        f"train step ({len(fw)}, {len(dg)} and {len(wg)} calls, bf16, dense-3; tolerances as "
+        "in phase 3)")
+    rep["forward_train_main_path"] = [
+        measure_conv(f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}", f, i, w, reps=QUICK_REPS)
+        for f, i, w in fw]
+    fwd_train = totals(rep["forward_train_main_path"])
+    log(f"  the train step's {len(fw)} forward convs: kernel {fwd_train['ms']:.3f} ms, bound "
+        f"{fwd_train['bound_ms']:.4f} ({fwd_train['bound_by']}), plain "
+        f"{fwd_train['plain_ms']:.2f}, library {fwd_train['library_ms']:.3f}")
     rep["dgrad_main_path"] = [measure_dgrad(f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}",
                                             g, t, w, reps=QUICK_REPS) for g, t, w in dg]
     rep["wgrad_main_path"] = [measure_wgrad(f"K{t.shape[1]} {f.shape[2]}->{g.shape[2]}",
                                             f, t, g, reps=QUICK_REPS) for f, t, g in wg]
-    require_ok(rep["dgrad_main_path"] + rep["wgrad_main_path"],
-               "config-2 backward, main-path inputs")
+    require_ok(rep["forward_train_main_path"] + rep["dgrad_main_path"]
+               + rep["wgrad_main_path"], "config-2 train step, main-path inputs")
     partials = [t.shape[1] * f.shape[0] * sc.wgrad_chunks(f.shape[1])[1] * f.shape[2]
                 * g.shape[2] * 4 for f, t, g in wg]
     rep["wgrad_partials_max_bytes"] = max(partials)
     log(f"  wgrad partials buffer: largest {max(partials) / 2**20:.1f} MiB "
         f"(K x B*chunks x Cin x Cout f32), sum over the step {sum(partials) / 2**20:.1f} MiB")
-    del dg, wg
+    del fw, dg, wg
 
     runs = {}
     for remat in (False, True):
@@ -1512,6 +1543,155 @@ def run_cli(fn, argv, what: str):
 def expect(got, want, what: str) -> None:
     if got != want:
         raise AssertionError(f"{what}: {got}, expected {want}")
+
+
+def sequential_eval(cfg, model, batches, num_scenes: int, bits: list) -> dict:
+    """``run_eval``'s pass before the lookahead, written out: each batch's
+    eval step, a wait for the card, the fetch, then its scenes scored, one
+    batch after the other. Appends each batch's packed mask bits to
+    ``bits``; returns mAP, per-scene mAP@0.5 (as ``run_eval`` rounds it),
+    scenes and the split as ``run_eval``'s keys."""
+    ev = EV.InstanceAPEvaluator(cfg.model.num_classes)
+    seen, t_dev, t_fetch, t_host = 0, 0.0, 0.0, 0.0
+    t_pass = time.perf_counter()
+    for bi, (batch, dev) in enumerate(device_batches(batches, DEVICE, TL.BATCH_KEYS)):
+        t0 = time.perf_counter()
+        raw = TL.eval_step(cfg, model, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fetch_eval_outputs(raw)
+        del raw
+        bits.append(out["point_mask_bits"])
+        t2 = time.perf_counter()
+        for b in range(len(batch["valid"])):
+            if bi * cfg.data.batch_size + b >= num_scenes:
+                continue
+            o, (valid, pinst, psem) = EV._scene_slice(out, batch, b)
+            masks, scores, pred_cls, pmask = EV.postprocess_scene(o, 0, cfg.model.num_classes)
+            ev.add_scene(masks, scores, pred_cls, pmask, pinst,
+                         EV._gt_classes_from_points(pinst, psem, valid), valid)
+            seen += 1
+        t_dev += t1 - t0
+        t_fetch += t2 - t1
+        t_host += time.perf_counter() - t2
+    res = ev.compute()
+    res["per_scene_mAP@0.5"] = [round(float(x), 4) if np.isfinite(x) else None
+                                for x in ev.per_scene_map(0.5)]
+    res.update(scenes=seen, eval_wall_s=time.perf_counter() - t_pass, eval_dev_s=t_dev,
+               eval_fetch_s=t_fetch, eval_host_s=t_host)
+    return res
+
+
+@contextlib.contextmanager
+def fetched_bits(bits: list):
+    """``run_eval``'s fetches, with each batch's packed mask bits appended
+    to ``bits``."""
+    real = EV.fetch_eval_outputs
+
+    def spy(out):
+        host = real(out)
+        bits.append(host["point_mask_bits"])
+        return host
+    EV.fetch_eval_outputs = spy
+    try:
+        yield
+    finally:
+        EV.fetch_eval_outputs = real
+
+
+def peak_bytes() -> dict:
+    """The card's peak memory since the last reset: the bytes the tensors
+    asked for, and those allocated (``max_memory_allocated``, in the caching
+    allocator's blocks, whose rounding depends on what it holds already)."""
+    return {"requested": torch.cuda.memory_stats()["requested_bytes.all.peak"],
+            "allocated": torch.cuda.max_memory_allocated()}
+
+
+def lookahead_check(cfg, model, what: str) -> dict:
+    """``run_eval``'s lookahead on the card for one config, ``model`` in its
+    eval form: the eval step's syncs (none) and the step under the sync
+    check, the gap from its return to its end on the card, and ``run_eval``
+    against :func:`sequential_eval` in turns, equal results, each pass's
+    split a scene, the lookahead pass's peak memory (the bytes requested)
+    within one eval step's peak plus one batch's inputs."""
+    n = LOOKAHEAD_SCENES
+    bs = cfg.data.batch_size
+    batches = list(itertools.islice(val_batches(cfg), -(-n // bs)))
+    dev = [TL.to_device(b, DEVICE) for b in batches[:2]]
+    for b in dev:
+        TL.eval_step(cfg, model, b)
+    with SYNCS.sync_sites() as sites:
+        TL.eval_step(cfg, model, dev[0])
+    if sites:
+        raise AssertionError(f"{what}: the eval step syncs with the host: {dict(sites)}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TL.eval_step(cfg, model, dev[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    gaps = [SYNCS.timed_return(lambda: TL.eval_step(cfg, model, b))
+            for _ in range(GAP_REPS) for b in dev]
+    gap = {k: SYNCS.summary([g[k] for g in gaps]) for k in gaps[0]}
+    log(f"  {what}: the eval step makes no host sync (set_sync_debug_mode 'warn': 0; "
+        f"'error': none raised); ms, median of {len(gaps)} (min, max): the call to its "
+        "return (host_ms), its return to its end on the card (gap_ms), its start to its "
+        "end on the card (card_ms): "
+        + ", ".join(f"{k} {v['median']:.3f} ({v['min']:.3f}, {v['max']:.3f})"
+                    for k, v in gap.items()))
+    # one step's peak, its batch already on the card, and one batch's inputs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = TL.eval_step(cfg, model, dev[0])
+    torch.cuda.synchronize()
+    step_peak = peak_bytes()
+    batch_bytes = sum(t.nbytes for t in dev[0].values())
+    del out, dev
+    passes, bits, peak = [], {}, {"requested": 0, "allocated": 0}
+    for form in ("sequential", "lookahead", "lookahead", "sequential"):
+        got = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if form == "sequential":
+            res = sequential_eval(cfg, model, batches, n, got)
+        else:
+            with fetched_bits(got):
+                res = run_eval(cfg, model, batches, num_scenes=n, per_scene=True)
+            torch.cuda.synchronize()
+            peak = {k: max(peak[k], v) for k, v in peak_bytes().items()}
+        passes.append((form, res))
+        bits.setdefault(form, got)
+        if not all(torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+                   for a, b in zip(got, bits[form], strict=True)):
+            raise AssertionError(f"{what}: {form} pass's mask bits differ run to run")
+    seq, look = passes[0][1], passes[1][1]
+    if not all(torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+               for a, b in zip(bits["sequential"], bits["lookahead"], strict=True)):
+        raise AssertionError(f"{what}: run_eval's packed mask bits differ from the sequential "
+                             "pass's")
+    keys = sorted(k for k in seq if k.startswith("mAP"))
+    for form, res in passes:
+        if ({k: res[k] for k in keys + ["per_scene_mAP@0.5", "scenes"]}
+                != {k: seq[k] for k in keys + ["per_scene_mAP@0.5", "scenes"]}):
+            raise AssertionError(f"{what}: {form} pass scored {res}, the sequential {seq}")
+    if look["scenes"] != n:
+        raise AssertionError(f"{what}: run_eval scored {look['scenes']} scenes, not {n}")
+    if peak["requested"] > step_peak["requested"] + batch_bytes:
+        raise AssertionError(f"{what}: run_eval's peak {peak} B exceeds one eval step's "
+                             f"{step_peak} B plus one batch's inputs {batch_bytes} B")
+    splits = [(form, per_scene_split(res)) for form, res in passes]
+    log(f"  {what}: run_eval (lookahead) = the sequential pass over {n} scenes "
+        f"({len(bits['lookahead'])} batches): packed mask bits torch.equal, {keys} "
+        f"{[look[k] for k in keys]}, per-scene mAP@0.5 {look['per_scene_mAP@0.5']} equal; "
+        f"peak bytes requested {peak['requested']} <= one step's {step_peak['requested']} + "
+        f"one batch's inputs {batch_bytes} (allocated, in the allocator's rounded blocks: "
+        f"{peak['allocated']}, one step's {step_peak['allocated']})")
+    log(f"  {what}: s a scene in turns (wall, dev = wait after scoring, fetch, host): "
+        + "; ".join(f"{form} " + ", ".join(f"{k} {v:.4f}" for k, v in sp.items())
+                    for form, sp in splits))
+    return {"syncs": 0, "return_gap_ms": gap, "peak_bytes": peak,
+            "step_peak_bytes": step_peak, "batch_input_bytes": batch_bytes,
+            "scenes": n, "mAP": {k: look[k] for k in keys},
+            "split_per_scene": [{"pass": form, **sp} for form, sp in splits]}
 
 
 def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
@@ -1688,6 +1868,17 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
         f"{fetch['logits_bytes']}")
     log(f"  config-2 checkpoint: {ckpt['bytes']} bytes, save {ckpt['save_ms']:.1f} ms, "
         f"restore {ckpt['restore_ms']:.1f} ms")
+
+    # g. run_eval's lookahead: the eval step with no host sync, the device
+    # work left at its return, the pass against a sequential one
+    more = [f"data.val_scenes={LOOKAHEAD_SCENES}"]
+    cfg1 = load_config(CONFIG1, infer.parse_overrides(C1_EVAL_SET + more))
+    model1 = TL.eval_model(cfg1, CK.restore(best, TL.init_state(
+        cfg1, DEVICE, torch.Generator().manual_seed(seed))))
+    cfg2 = load_config(CONFIG2, infer.parse_overrides(C2_SET + C2_EVAL_SET + more))
+    rep["lookahead"] = {"config1": lookahead_check(cfg1, model1, "config1"),
+                        "config2": lookahead_check(cfg2, TL.eval_model(cfg2, state),
+                                                   "config2 (dense-2)")}
     log(f"  {smi}")
     return rep
 
@@ -1889,10 +2080,8 @@ def pool_kernels(cfg, model, batch, n_fwd: int) -> dict:
                         reps=QUICK_REPS) for f, i, w in calls]
     tb = TL.to_device(batch, DEVICE, TL.TRAIN_KEYS)
     gen = TL.dropout_generators(cfg, 0, DEVICE, range(tb["points"].shape[0]))
-    dg = []
-    wg = capture(lambda: dg.extend(capture(
-        lambda: TL.loss_and_grads(cfg, copy.deepcopy(model), tb, gen), "conv_dgrad")),
-        "conv_wgrad")
+    dg, wg = capture(lambda: TL.loss_and_grads(cfg, copy.deepcopy(model), tb, gen),
+                     "conv_dgrad", "conv_wgrad")
     if (len(dg), len(wg)) != (n_fwd - 1, n_fwd):
         raise AssertionError(f"{len(dg)} dgrad and {len(wg)} wgrad calls in one pooled step")
     d = [measure_dgrad(f"K{w.shape[0]} {w.shape[1]}->{w.shape[2]}", g, t, w, reps=QUICK_REPS)
@@ -2817,9 +3006,12 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
             c2["forward_main_path"], "feats[idx] im2col gather + torch.matmul (two calls)",
             f"one config-2 eval forward ({n_eval} convs, bf16, dense-2, main-path inputs); "
             f"launches: config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one config-1 "
-            f"forward (10 convs, f32); pool_dropout: one pooled forward; per-conv records "
-            f"in {records}", main_path, pool["forward"]),
-            launches_by_path={k: v[0] for k, v in paths.items()}),
+            f"forward (10 convs, f32); pool_dropout: one pooled forward; train_step: one "
+            f"config-2 train step ({n_train} convs, bf16, dense-3); per-conv records in "
+            f"{records}", main_path, pool["forward"]),
+            launches_by_path={k: v[0] for k, v in paths.items()},
+            train_step={"launches": len(c2["forward_train_main_path"]),
+                        **totals(c2["forward_train_main_path"])}),
         dict(kernel_entry(
             "sparse_conv_dgrad", src, "sparse_rcnn_tpu/ops/sparse_conv.py:536", dgrad,
             [r for r in bwd_recs if r["role"] == "dgrad"], c2["dgrad_main_path"],
@@ -2851,7 +3043,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     log(f"[phase 13] done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"eval_checkpoints": {k: p9[k] for k in (
         "card", "eval_split_per_scene", "config2_fetch", "config2_checkpoint",
-        "card_vs_cpu_max_abs_diff")}}))
+        "card_vs_cpu_max_abs_diff", "lookahead")}}))
     print(json.dumps({"data_layer": p10["summary"]}))
     print(json.dumps({"data_parallel": p11["summary"]}))
     print(json.dumps({"tools": {"card": smi, "phase_s": p12["phase_s"],

@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 
 from ..models.targets import SceneGT
+from ..ops.consts import device_tensor
+from ..ops.voxelize import segment_offsets
 
 
 def _segment(values, seg, num_segments: int, reduce: str, init):
@@ -42,7 +44,7 @@ def build_scene_gt(points, valid, point_instance, point_semantic, p2v,
     coords (``ops.voxelize.rebase_coords``); boxes get the same shift.
     """
     dev = points.device
-    vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=dev)
+    vs = device_tensor(voxel_size, points.dtype, dev)
     if base is None:
         base = torch.zeros((points.shape[0], 3), dtype=torch.int32, device=dev)
     i32_min = torch.iinfo(torch.int32).min
@@ -66,13 +68,13 @@ def build_scene_gt(points, valid, point_instance, point_semantic, p2v,
         has_inst = (pinst >= 0) & vld
         seg_i = torch.where(has_inst & (pinst < max_instances), pinst,
                             max_instances).to(torch.int64)
-        big = torch.tensor(1e9, dtype=pos.dtype, device=dev)
-        lo = _segment(torch.where(has_inst[:, None], pos, big), seg_i,
+        lo = _segment(torch.where(has_inst[:, None], pos, pos.new_full((), 1e9)), seg_i,
                       max_instances + 1, "amin", inf)[:max_instances]
-        hi = _segment(torch.where(has_inst[:, None], pos, -big), seg_i,
+        hi = _segment(torch.where(has_inst[:, None], pos, pos.new_full((), -1e9)), seg_i,
                       max_instances + 1, "amax", -inf)[:max_instances]
         # every point without a countable instance sits in the scratch segment
-        ivalid = torch.bincount(seg_i, minlength=max_instances + 1)[:max_instances] > 0
+        counts = segment_offsets(torch.sort(seg_i).values, max_instances + 1).diff()
+        ivalid = counts[:max_instances] > 0
         boxes = torch.where(ivalid[:, None], torch.cat([lo, hi], -1), 0.0)
 
         # instance classes

@@ -131,6 +131,5 @@ def paint_instance_masks(outputs: Dict[str, torch.Tensor], scales: List[ScaleSet
     logits = torch.stack([p[0] for p in per])
     inside = torch.stack([p[1] for p in per])
     if masked:
-        logits = torch.where(inside, logits, torch.tensor(-1e9, dtype=logits.dtype,
-                                                          device=logits.device))
+        logits = torch.where(inside, logits, logits.new_full((), -1e9))
     return logits, inside

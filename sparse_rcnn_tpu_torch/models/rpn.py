@@ -50,8 +50,7 @@ class RPNHead(nn.Module):
         center = vc + d_center * norm
         size = torch.exp(d_size) * norm
         boxes = torch.cat([center - size / 2, center + size / 2], dim=-1)
-        obj = torch.where(mask, obj, torch.tensor(-1e9, dtype=obj.dtype,
-                                                  device=obj.device))
+        obj = torch.where(mask, obj, obj.new_full((), -1e9))
         return obj, boxes, deltas
 
 
@@ -62,8 +61,8 @@ def select_proposals(obj_logits, boxes, valid, cfg: RPNConfig):
     No gradient flows: proposal geometry is a hard decision.
     """
     # logit of the score threshold, taken in f32 as the JAX package takes it
-    thr = torch.log(torch.tensor(cfg.score_threshold / (1 - cfg.score_threshold),
-                                 dtype=torch.float32, device=obj_logits.device))
+    thr = torch.log(obj_logits.new_full((), cfg.score_threshold / (1 - cfg.score_threshold),
+                                        dtype=torch.float32))
     out_boxes, out_scores, out_mask = [], [], []
     for scores_m, boxes_m, valid_m in zip(obj_logits, boxes, valid):
         vals, idx, mask = nms_ops.topk_rows(scores_m, valid_m, cfg.pre_nms_topk)
@@ -71,12 +70,9 @@ def select_proposals(obj_logits, boxes, valid, cfg: RPNConfig):
         keep_idx, keep_mask = nms_ops.nms_3d(
             cand, vals, mask, cfg.nms_iou_threshold, cfg.num_proposals)
         safe = keep_idx.clamp(0, cfg.pre_nms_topk - 1).to(torch.int64)
-        neg_inf = torch.tensor(float("-inf"), dtype=vals.dtype, device=vals.device)
-        p_scores = torch.where(keep_mask, vals[safe], neg_inf)
+        p_scores = torch.where(keep_mask, vals[safe], vals.new_full((), float("-inf")))
         p_mask = keep_mask & (p_scores > thr)
         out_boxes.append(cand[safe])
-        out_scores.append(torch.where(p_mask, p_scores,
-                                      torch.tensor(-1e9, dtype=vals.dtype,
-                                                   device=vals.device)))
+        out_scores.append(torch.where(p_mask, p_scores, vals.new_full((), -1e9)))
         out_mask.append(p_mask)
     return torch.stack(out_boxes), torch.stack(out_scores), torch.stack(out_mask)

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from ..ops import pooling as pool_ops
+from ..ops.consts import device_tensor
 from ..ops.hierarchy import ScaleSet
 from .layers import (Dense, MaskedBatchNorm, SparseBasicBlock, SparseConv, SparseDropout,
                      SubMConv3d, remat)
@@ -44,7 +45,7 @@ def _grid_slots(coords, nvalid, extent):
     dx, dy, dz = extent
     b, m, _ = coords.shape
     live = torch.arange(m, dtype=torch.int32, device=coords.device)[None, :] < nvalid[:, None]
-    lim = torch.tensor([dx, dy, dz], dtype=torch.int32, device=coords.device)
+    lim = device_tensor([dx, dy, dz], torch.int32, coords.device)
     inb = live & ((coords >= 0) & (coords < lim)).all(-1)
     flat = ((coords[..., 0].to(torch.int64) * dy + coords[..., 1]) * dz + coords[..., 2])
     flat = flat + torch.arange(b, device=coords.device)[:, None] * (dx * dy * dz)

@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .consts import device_tensor
+
 # Coordinates must lie in [-COORD_OFFSET, COORD_OFFSET): 16 bits per axis.
 COORD_BITS = 16
 COORD_OFFSET = 1 << (COORD_BITS - 1)
@@ -87,12 +89,16 @@ def unique_coords(
     overflow = n_total - n_unique
     fits = (rank >= 0) & (rank < capacity) & is_valid
 
+    # each head writes its rank's row; every other key goes to a scratch row
+    # past the table, cut off after (no boolean index: that reads its count
+    # on the host)
     heads = is_new & fits
-    ukeys = torch.full((capacity,), SENTINEL_KEY, dtype=torch.int64, device=dev)
-    ukeys[rank[heads]] = skeys[heads]
-    ucoords = unpack_coords(ukeys)
+    ukeys = torch.full((capacity + 1,), SENTINEL_KEY, dtype=torch.int64, device=dev)
+    ukeys[torch.where(heads, rank, capacity)] = skeys
+    ucoords = unpack_coords(ukeys[:capacity])
     unused = torch.arange(capacity, device=dev) >= n_unique
-    ucoords[unused] = torch.tensor(_UNUSED_ROW, dtype=torch.int32, device=dev)
+    ucoords = torch.where(unused[:, None],
+                          device_tensor(_UNUSED_ROW, torch.int32, dev), ucoords)
 
     inverse = torch.empty(n, dtype=torch.int32, device=dev)
     inverse[order] = torch.where(fits, rank, -1).to(torch.int32)
@@ -112,4 +118,4 @@ def kernel_offsets(kernel_size, centered: bool = True,
     axes = [range(-(k // 2), k - k // 2) if centered else range(k)
             for k in kernel_size]
     offs = [(dx, dy, dz) for dx in axes[0] for dy in axes[1] for dz in axes[2]]
-    return torch.tensor(offs, dtype=torch.int32, device=device)
+    return device_tensor(offs, torch.int32, "cpu" if device is None else device)

@@ -35,18 +35,19 @@ def nms_3d(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     n = boxes.shape[0]
     dev = boxes.device
     iou = box_iou_3d(boxes, boxes)
-    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype, device=dev)
+    neg_inf = scores.new_full((), float("-inf"))
     s = torch.where(valid, scores, neg_inf)
     rows = torch.arange(n, device=dev)
     keep_idx = torch.full((max_outputs,), -1, dtype=torch.int32, device=dev)
     keep_mask = torch.zeros((max_outputs,), dtype=torch.bool, device=dev)
+    # the winner is a 1-element index: a 0-d tensor index is read on the host
     for i in range(max_outputs):
-        best = torch.argmax(s)
-        ok = s[best] > neg_inf
-        keep_idx[i] = torch.where(ok, best.to(torch.int32), -1)
+        best = torch.argmax(s).reshape(1)
+        ok = s[best][0] > neg_inf
+        keep_idx[i] = torch.where(ok, best[0].to(torch.int32), -1)
         keep_mask[i] = ok
         # suppress the winner and everything overlapping it
-        suppress = (iou[best] >= iou_threshold) | (rows == best)
+        suppress = (iou[best][0] >= iou_threshold) | (rows == best)
         s = torch.where(ok & suppress, neg_inf, s)
     return keep_idx, keep_mask
 
@@ -54,9 +55,7 @@ def nms_3d(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 def topk_rows(scores: torch.Tensor, valid: torch.Tensor, k: int):
     """Top-k over valid rows: (values, idx int32[k], mask bool[k]); ties
     keep the lower index first."""
-    masked = torch.where(valid, scores, torch.tensor(float("-inf"),
-                                                     dtype=scores.dtype,
-                                                     device=scores.device))
+    masked = torch.where(valid, scores, scores.new_full((), float("-inf")))
     vals, idx = torch.sort(masked, descending=True, stable=True)
     vals, idx = vals[:k], idx[:k]
     return vals, idx.to(torch.int32), torch.isfinite(vals)

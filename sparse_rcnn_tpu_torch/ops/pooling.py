@@ -63,7 +63,7 @@ def max_pool(feats: torch.Tensor, down_idx: torch.Tensor) -> torch.Tensor:
     [B, M_out, C]; 0 at a site with no child."""
     live = (down_idx >= 0)[..., None]
     g = torch.where(live, _GatherChildren.apply(feats, down_idx),
-                    torch.tensor(-torch.inf, dtype=feats.dtype, device=feats.device))
+                    feats.new_full((), -torch.inf))
     out = torch.amax(g, dim=1)
     return torch.where(live.any(dim=1), out, out.new_zeros(())).to(feats.dtype)
 
@@ -79,7 +79,6 @@ def global_pool(feats: torch.Tensor, nvalid: torch.Tensor, mode: str = "mean") -
     """[B, M, C] → [B, C] over live rows."""
     mask = row_mask(nvalid, feats.shape[1])[..., None]
     if mode == "max":
-        neg = torch.tensor(-torch.inf, dtype=feats.dtype, device=feats.device)
-        return torch.amax(torch.where(mask, feats, neg), dim=1)
+        return torch.amax(torch.where(mask, feats, feats.new_full((), -torch.inf)), dim=1)
     s = torch.sum(feats * mask.to(feats.dtype), dim=1)
     return s / torch.clamp(nvalid[:, None].to(feats.dtype), min=1.0)

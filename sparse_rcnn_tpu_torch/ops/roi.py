@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import coords as coord_ops
+from .consts import device_tensor
 
 # corner c of a unit cell: (c >> 2 & 1, c >> 1 & 1, c & 1)
 _CORNERS = [[(c >> 2) & 1, (c >> 1) & 1, c & 1] for c in range(8)]
@@ -48,7 +49,7 @@ def sample_trilinear(table_coords, table_nvalid, feats, positions,
     q = positions / stride - 0.5
     base = torch.floor(q).to(torch.int32)
     frac = q - base
-    offs = torch.tensor(_CORNERS, dtype=torch.int32, device=positions.device)
+    offs = device_tensor(_CORNERS, torch.int32, positions.device)
     shape = (8,) + (1,) * (base.ndim - 1) + (3,)
     offs = offs.reshape(shape)
     cc = base[None] + offs
@@ -68,8 +69,7 @@ def sample_nearest(table_coords, table_nvalid, values, positions,
     cc = torch.floor(positions / stride).to(torch.int32)
     idx = coord_ops.table_lookup_bulk(table, coord_ops.pack_coords(cc))
     val = values[idx.clamp(0, m - 1).to(torch.int64)]
-    return torch.where(idx >= 0, val, torch.as_tensor(fill_value, dtype=values.dtype,
-                                                      device=values.device))
+    return torch.where(idx >= 0, val, values.new_full((), fill_value))
 
 
 def roi_crop(table_coords, table_nvalid, feats, boxes, grid: int,

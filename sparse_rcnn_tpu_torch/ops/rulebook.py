@@ -78,12 +78,14 @@ def downsample_with_rulebooks(
     k = stride ** 3
     ok = mask & (inverse >= 0)                              # overflow victims drop
     rows = torch.arange(m, dtype=torch.int32, device=dev)
-    down = torch.full((k * capacity,), -1, dtype=torch.int32, device=dev)
-    down[code[ok] * capacity + inverse[ok].to(torch.int64)] = rows[ok]
+    # distinct slots for the kept rows; the dropped ones to a scratch slot
+    # past the table, cut off after
+    down = torch.full((k * capacity + 1,), -1, dtype=torch.int32, device=dev)
+    down[torch.where(ok, code * capacity + inverse.to(torch.int64), k * capacity)] = rows
     taps = torch.arange(k, device=dev)
     up = torch.where((code[None, :] == taps[:, None]) & ok[None, :],
                      inverse[None, :], -1)
-    return ucoords, n_out, overflow, down.reshape(k, capacity), up
+    return ucoords, n_out, overflow, down[:k * capacity].reshape(k, capacity), up
 
 
 def strided_rulebook(in_coords, in_nvalid, out_coords, out_nvalid,

@@ -14,6 +14,17 @@ import torch
 
 from ..sparse import SENTINEL_COORD, SparseTensor, row_mask
 from . import coords as coord_ops
+from .consts import device_tensor
+
+
+def segment_offsets(sorted_seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The bounds of the segments of ``sorted_seg`` (ids in [0, num_segments),
+    sorted ascending): int64[num_segments + 1], segment s from ``[s]`` to
+    ``[s + 1]``, so their ``diff`` is ``torch.bincount(sorted_seg,
+    minlength=num_segments)``, found with no host read (on the card
+    ``bincount`` reads the largest id to size its output)."""
+    ids = torch.arange(num_segments + 1, dtype=sorted_seg.dtype, device=sorted_seg.device)
+    return torch.searchsorted(sorted_seg, ids)
 
 
 def voxelize_scene(
@@ -25,17 +36,21 @@ def voxelize_scene(
     Returns (vcoords int32[M, 3] sorted, vfeats [M, C] segment means,
     n_voxels int32, p2v int32[N] (-1 for invalid/dropped points), overflow).
     """
-    vs = torch.as_tensor(voxel_size, dtype=points.dtype, device=points.device)
+    vs = device_tensor(voxel_size, points.dtype, points.device)
     ic = torch.floor(points / vs).to(torch.int32)
     ucoords, n_voxels, p2v, overflow = coord_ops.unique_coords(ic, valid, capacity)
     # segment mean; dropped points go to a scratch bucket at index capacity.
     # Each voxel's points are summed in point order over a stable sort by
     # voxel (no atomics, unlike index_add_), so the means are the same from
-    # run to run and on both devices.
+    # run to run and on both devices. The segments' bounds come from the
+    # sorted ids and go in as trusted offsets (``unsafe``: segment_reduce
+    # checks lengths on the host).
     seg = torch.where(p2v >= 0, p2v, capacity).to(torch.int64)
     order = torch.argsort(seg, stable=True)
-    counts = torch.bincount(seg, minlength=capacity + 1)
-    sums = torch.segment_reduce(feats[order], "sum", lengths=counts, axis=0)
+    offsets = segment_offsets(seg[order], capacity + 1)
+    counts = offsets.diff()
+    sums = torch.segment_reduce(feats[order], "sum", offsets=offsets, axis=0,
+                                unsafe=True)
     vfeats = sums[:capacity] / torch.clamp(counts[:capacity].to(feats.dtype),
                                            min=1.0)[:, None]
     return ucoords, vfeats, n_voxels, p2v, overflow
@@ -76,5 +91,4 @@ def devoxelize(voxel_values: torch.Tensor, p2v: torch.Tensor, fill_value=0):
     safe = p2v.clamp(0, m - 1).to(torch.int64)
     out = torch.stack([v[s] for v, s in zip(voxel_values, safe)])
     keep = (p2v >= 0).reshape(p2v.shape + (1,) * (out.ndim - p2v.ndim))
-    return torch.where(keep, out, torch.as_tensor(fill_value, dtype=out.dtype,
-                                                  device=out.device))
+    return torch.where(keep, out, out.new_full((), fill_value))

@@ -100,22 +100,34 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
     once. GT classes come from the raw point labels, so a scene with more
     instances than ``model.max_instances`` still scores all of them.
 
+    One batch of lookahead, as the JAX package's ``run_eval``: the eval step
+    of batch i+1 is queued on the card (:func:`~.loop.eval_step` reads
+    nothing back on the host, so it returns before the card is done), then
+    batch i is scored on the host while the card runs, then the host waits
+    for step i+1 and fetches its outputs. The step's device outputs (the
+    [B, P, N] f32 logits among them) are dropped right after the fetch,
+    before the next step is queued, so the card never holds two of them.
+    The scenes are scored in batch order, so the evaluators add them up as
+    a strictly sequential pass would. On the CPU the step is synchronous and
+    the same loop runs one batch after the other.
+
     Returns the evaluator's mAP dict (``per_class``: AP@t per class id),
     with ``per_scene`` the per-scene mAP@0.5 list (None for a scene with no
     scoreable GT) and its mean, std, min and max; ``semantic_mIoU`` and
     ``semantic_acc`` with the semantic head; ``scenes``; and the pass's
-    seconds: ``eval_wall_s`` in all, ``eval_dev_s`` from the start of each
-    eval step to the device's end of it (host launch work included: the
-    step syncs with the host on its way), ``eval_fetch_s`` the copies to the
-    host, ``eval_host_s`` the scoring. The batches run and are scored in
-    order, one after the other.
+    seconds: ``eval_wall_s`` in all, ``eval_dev_s`` the waits for the card
+    left over after scoring (the device time not hidden behind the host;
+    all of each step on the CPU), ``eval_fetch_s`` the copies to the host,
+    ``eval_host_s`` the scoring. A well overlapped pass has ``eval_wall_s``
+    near ``eval_dev_s + eval_fetch_s`` plus the host's work to queue the
+    steps and to score the last batch.
 
     Under data parallel (:func:`..parallel.context.shard_context`, with
     ``loader`` a rank's share of each global batch) every rank runs the
-    eval step on its slots and fetches them to the host; rank 0 gathers
-    the scenes in global order and scores them once, as one process scores
-    the whole batches; every rank returns rank 0's result (its times are
-    rank 0's).
+    eval step on its slots and fetches them to the host, where rank 0
+    gathers the scenes in global order with the fetch and scores them once,
+    one batch behind, as one process scores the whole batches; every rank
+    returns rank 0's result (its times are rank 0's).
     """
     t_pass = time.perf_counter()
     world = DPC.current()
@@ -130,22 +142,12 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
     seen = 0
     semantic = False
     t_dev = t_fetch = t_host = 0.0
-    batches = loader if max_batches is None else itertools.islice(loader, max_batches)
-    for bi, (batch, dev) in enumerate(device_batches(batches, device, TL.BATCH_KEYS)):
+
+    def score(scenes) -> None:
+        """Add one fetched batch's scenes, (global index, (outputs, labels)),
+        to the evaluators."""
+        nonlocal seen, semantic, t_host
         t0 = time.perf_counter()
-        raw = TL.eval_step(cfg, model, dev)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        out = fetch_eval_outputs(raw)
-        del raw
-        t2 = time.perf_counter()
-        local = len(batch["valid"])
-        first = bi * bs + (0 if world is None else world.rank * local)
-        scenes = [(first + b, _scene_slice(out, batch, b)) for b in range(local)]
-        if world is not None:
-            ranks = DP.gather_to_rank0(scenes, world)
-            scenes = [] if ranks is None else [s for r in ranks for s in r]
         for g, (o, labels) in scenes:
             if num_scenes is not None and g >= num_scenes:
                 continue       # a wrap-pad duplicate of a scene already scored
@@ -158,9 +160,38 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
                 sem_ev.add(np.asarray(o["point_semantic_pred"][0])[point_valid],
                            psem[point_valid])
             seen += 1
-        t_dev += t1 - t0
-        t_fetch += t2 - t1
-        t_host += time.perf_counter() - t2
+        t_host += time.perf_counter() - t0
+
+    pending = None     # the scenes of the batch before, fetched (rank 0's, gathered)
+    batches = loader if max_batches is None else itertools.islice(loader, max_batches)
+    for bi, (batch, dev) in enumerate(device_batches(batches, device, TL.BATCH_KEYS)):
+        t0 = time.perf_counter()
+        raw = TL.eval_step(cfg, model, dev)      # queued; the card starts on it
+        if device.type == "cuda":
+            # the end of this step on its stream: not of device_batches'
+            # copies of the next batch, which run on a stream of their own
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+        else:
+            t_dev += time.perf_counter() - t0    # the step ran inside the call
+        if pending is not None:
+            score(pending)   # on the host while the card runs step bi
+        t1 = time.perf_counter()
+        if device.type == "cuda":
+            done.synchronize()
+        t2 = time.perf_counter()
+        out = fetch_eval_outputs(raw)
+        del raw              # drop the device outputs before the next step
+        local = len(batch["valid"])
+        first = bi * bs + (0 if world is None else world.rank * local)
+        pending = [(first + b, _scene_slice(out, batch, b)) for b in range(local)]
+        if world is not None:
+            ranks = DP.gather_to_rank0(pending, world)
+            pending = [] if ranks is None else [s for r in ranks for s in r]
+        t_dev += t2 - t1
+        t_fetch += time.perf_counter() - t2
+    if pending is not None:
+        score(pending)
     if world is not None and world.rank != 0:
         return DP.broadcast_from_rank0(None, world)
     res = ev.compute(per_class=per_class)

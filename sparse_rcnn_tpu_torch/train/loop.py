@@ -35,6 +35,7 @@ from ..models.convert import convert_variables
 from ..models.detector import SparseRCNN, paint_instance_masks
 from ..models.targets import roi_targets, rpn_targets
 from ..ops import hierarchy as H
+from ..ops.consts import device_tensor
 from ..ops import voxelize as V
 from ..parallel import context as DPC
 from ..sparse import make_sparse_tensor
@@ -107,8 +108,8 @@ def prepare_inputs(cfg: Config, batch: Dict[str, torch.Tensor]):
         # a site outside the grid at the tail's first scale is outside at
         # every deeper scale too
         sc = scales[dfs]
-        ext = torch.tensor([e >> dfs for e in bb.grid_extent], dtype=torch.int32,
-                           device=sc.coords.device)
+        ext = device_tensor([e >> dfs for e in bb.grid_extent], torch.int32,
+                            sc.coords.device)
         inside = ((sc.coords >= 0) & (sc.coords < ext)).all(-1)
         aux["dense_tail_oob"] = (sc.row_mask & ~inside).sum()
     gt = None
@@ -181,8 +182,7 @@ def packbits(mask: torch.Tensor) -> torch.Tensor:
     bit, N padded with False."""
     n = mask.shape[-1]
     mask = torch.nn.functional.pad(mask, (0, -n % 8))
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
-                           device=mask.device)
+    weights = device_tensor([128, 64, 32, 16, 8, 4, 2, 1], torch.uint8, mask.device)
     return (mask.reshape(*mask.shape[:-1], -1, 8).to(torch.uint8) * weights).sum(
         -1, dtype=torch.uint8)
 

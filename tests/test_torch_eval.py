@@ -18,6 +18,14 @@ split: 3 synthetic val scenes in batches of 2, the last wrap-padded.
 - ``point_mask_bits`` is ``np.packbits(point_mask_logits > 0, axis=-1)``
   exactly, ``fetch_eval_outputs`` leaves out the logits and ``gt``, and
   ``gt`` agrees with JAX's.
+- ``run_eval``'s one-batch lookahead, as JAX's: step i+1 is queued before
+  batch i is scored, the scenes are scored in batch order, and
+  ``max_batches`` and a wrap-padded ``num_scenes`` count as before.
+- The eval step reads nothing back on the host, so on the card it returns
+  before the card is done: on meta tensors, which carry no data, every such
+  read raises. The voxel counts that replace ``torch.bincount`` and the
+  voxel means are bit-equal to the ``bincount`` and ``segment_reduce``
+  lengths form.
 """
 
 import jax
@@ -35,6 +43,8 @@ from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.data import synthetic
 from sparse_rcnn_tpu_torch.data.pipeline import Loader
 from sparse_rcnn_tpu_torch.infer import to_host
+from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
+from sparse_rcnn_tpu_torch.ops import voxelize as V
 from sparse_rcnn_tpu_torch.train import checkpoint as CK
 from sparse_rcnn_tpu_torch.train import evaluate as E
 from sparse_rcnn_tpu_torch.train import loop as TL
@@ -48,6 +58,11 @@ EVAL_OVERRIDES = {
     "train": {"lr": 0.05, "warmup_steps": 0, "total_steps": 50, "ema": 0.9},
 }
 TIME_KEYS = ("eval_wall_s", "eval_dev_s", "eval_fetch_s", "eval_host_s")
+# the same model with a dense tail from scale 1
+DENSE_OVERRIDES = {**EVAL_OVERRIDES, "model": {
+    **EVAL_OVERRIDES["model"], "backbone": {**EVAL_OVERRIDES["model"]["backbone"],
+                                            "dense_from_scale": 1,
+                                            "grid_extent": [64, 64, 64]}}}
 
 
 def _outputs_close(got, want):
@@ -157,3 +172,82 @@ def test_point_mask_bits_and_selective_fetch(setup):
     np.testing.assert_allclose(raw["gt"].boxes.numpy(), np.asarray(jout["gt"].boxes),
                                rtol=1e-6, atol=1e-5)
     assert TL.eval_step(cfg, state, TL.to_device(batches[0], "cpu"))["gt"] is None
+
+
+def test_run_eval_lookahead_order(setup, monkeypatch):
+    """Step i+1 is queued before batch i is scored; scoring runs in batch
+    order, one batch behind, and the last batch is scored after the loop."""
+    cfg, state, _, _, batches = setup
+    four = batches + [{k: v.copy() for k, v in b.items()} for b in batches]
+    log = []
+    step, add = TL.eval_step, E.InstanceAPEvaluator.add_scene
+
+    def spy_step(*args):
+        log.append(("step", sum(e[0] == "step" for e in log)))
+        return step(*args)
+
+    def spy_add(self, *args):
+        point_valid = args[-1]          # a view of its host batch's labels
+        which = [i for i, b in enumerate(four) if np.shares_memory(point_valid, b["valid"])]
+        log.append(("score", *which))
+        return add(self, *args)
+
+    monkeypatch.setattr(TL, "eval_step", spy_step)
+    monkeypatch.setattr(E.InstanceAPEvaluator, "add_scene", spy_add)
+    # 8 slots, the last a wrap-pad duplicate
+    res = E.run_eval(cfg, state, four, num_scenes=7)
+    s, c = "step", "score"
+    assert log == [(s, 0), (s, 1), (c, 0), (c, 0), (s, 2), (c, 1), (c, 1), (s, 3),
+                   (c, 2), (c, 2), (c, 3)]
+    assert res["scenes"] == 7 and res["eval_dev_s"] > 0
+    log.clear()
+    res = E.run_eval(cfg, state, four, max_batches=3, num_scenes=5)
+    assert log == [(s, 0), (s, 1), (c, 0), (c, 0), (s, 2), (c, 1), (c, 1), (c, 2)]
+    assert res["scenes"] == 5
+
+
+@pytest.mark.parametrize("form", ["sparse", "dense"])
+def test_eval_step_reads_nothing_on_the_host(setup, monkeypatch, form):
+    """The whole eval step, GT included, on meta tensors: ``.item()``,
+    ``nonzero``, a boolean or 0-d tensor index and ``bincount`` raise on
+    them, and ``torch.tensor``/``as_tensor`` onto a device (a pageable copy,
+    which on the card waits for the stream) is refused. The card's own
+    check is ``chip_smoke.py`` phase 9, under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    cfg = setup[0] if form == "sparse" else load_config(overrides=DENSE_OVERRIDES)
+    model = TL.build_model(cfg, "meta")
+    batch = TL.to_device(setup[4][0], "meta", TL.TRAIN_KEYS)
+    monkeypatch.setattr(sc, "conv_forward", sc.sparse_conv_reference)
+
+    def refuse(fn):
+        def to_device(data, *args, **kw):
+            assert kw.get("device") is None and len(args) < 2, "a copy onto the device"
+            return fn(data, *args, **kw)
+        return to_device
+
+    for name in ("tensor", "as_tensor"):
+        monkeypatch.setattr(torch, name, refuse(getattr(torch, name)))
+    out = TL.eval_step(cfg, model, batch)
+    assert out["point_mask_bits"].device.type == "meta" and out["gt"] is not None
+
+
+@pytest.mark.parametrize("capacity", [300, 100])
+def test_voxel_counts_and_means_unchanged(capacity):
+    """Against the ``torch.bincount`` counts and the ``segment_reduce``
+    lengths form they replace, on a scene of 216 cells with invalid points,
+    empty capacity rows (300) and overflow victims (100): both drop points
+    (``p2v == -1``)."""
+    rng = np.random.default_rng(12)
+    points = torch.from_numpy(rng.uniform(0, 3, (1000, 3)).astype(np.float32))
+    feats = torch.from_numpy(rng.normal(size=(1000, 3)).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=1000) < 0.9)
+    _, vfeats, nv, p2v, ovf = V.voxelize_scene(points, feats, valid, [0.5] * 3, capacity)
+    assert (p2v == -1).any() and (int(nv) < capacity) == (capacity == 300)
+    assert (int(ovf) > 0) == (capacity == 100)
+    seg = torch.where(p2v >= 0, p2v, capacity).to(torch.int64)
+    order = torch.argsort(seg, stable=True)
+    counts = torch.bincount(seg, minlength=capacity + 1)
+    assert torch.equal(V.segment_offsets(seg[order], capacity + 1).diff(), counts)
+    sums = torch.segment_reduce(feats[order], "sum", lengths=counts, axis=0)
+    want = sums[:capacity] / torch.clamp(counts[:capacity].to(feats.dtype), min=1.0)[:, None]
+    assert torch.equal(vfeats, want)

@@ -30,7 +30,7 @@ need = {pkg.__name__ + "." + m for m in (
     "train.checkpoint", "train.evaluate", "data.ply", "data.datasets", "native",
     "ops.pooling", "parallel", "parallel.context", "parallel.data_parallel",
     "utils.profiling", "utils.flops", "tools", "tools.size_capacities",
-    "tools.preprocess_scannet", "tools.convert_checkpoint")}
+    "tools.preprocess_scannet", "tools.convert_checkpoint", "ops.consts")}
 from sparse_rcnn_tpu_torch.data.datasets import S3DISDataset, ScanNetDataset, SemanticKITTIDataset
 from sparse_rcnn_tpu_torch.data.pipeline import Loader, device_batches, host_voxelize_scene
 from sparse_rcnn_tpu_torch.data.ply import read_ply, write_ply
@@ -53,6 +53,7 @@ assert need <= set(names), sorted(need - set(names))
 import chip_smoke
 import tests.test_torch_kernel_cuda
 import benchmarks.profile_torch_slice
+import benchmarks.eval_step_syncs
 import benchmarks.compare_gather_gemm
 import benchmarks.probe_gather_gemm_stages
 import benchmarks.probe_wgrad_stages
