@@ -7,7 +7,8 @@ Needs one CUDA card; exits nonzero without one. Phases, any failure exits
 nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the sparse-conv kernels from ``sparse_rcnn_tpu_torch/ops/csrc``;
+2. build the CUDA libraries from ``sparse_rcnn_tpu_torch/ops/csrc`` (the
+   sparse conv's and the indexing backwards', one ``nvcc`` each, together);
 3. the forward kernel against its plain version on random inputs at every
    conv shape of a config-1 forward (f32 and bf16), a ragged M, a
    config-2-sized shape and the edge cases of its dead-tile skip and copy
@@ -15,7 +16,16 @@ nonzero:
    the share of (64-row tile, tap) pairs with no live entry; then the
    backward kernels (dgrad and wgrad) the same way, the edge cases for
    both, the wgrad checked bit-identical across two launches and with its
-   share of (32-row stage, tap) pairs with no live entry;
+   share of (32-row stage, tap) pairs with no live entry; then the RoI
+   crop's and the mask read's backward kernels (``roi_crop_grad``,
+   ``mask_read_grad``, ``ops/index_grad.py``) against their plain version,
+   CUDA's accumulating ``index_put_``, bit-equal and bit-identical across
+   two launches, on edge cases (``ROI_GRAD_EDGES``: every corner dead, every
+   live corner into row 0, M below one block with one box, a box with no
+   live corner, C 16 and 32, f32 and bf16; ``MASK_GRAD_EDGES``: one
+   proposal, a box that holds no point, a proposal all in one cell, runs
+   shorter than a warp's pass), with kernel, map, plain, library and bound
+   times;
 4. the config-1 inference slice on the card: ``infer.main`` on 3 val scenes
    (the forward count must rise by 10 per forward); tie-breaking of sort
    and argmax on the card; then the same weights and scenes on the CPU,
@@ -27,25 +37,30 @@ nonzero:
    ``tests/e2e/golden_config1.npz`` on the card;
 6. the config-1 training slice on the card: ``python -m
    sparse_rcnn_tpu_torch.train``'s ``main`` for 5 steps (per step 10
-   forward, 9 dgrad and 10 wgrad launches; finite losses); one step's loss
+   forward, 9 dgrad and 10 wgrad launches and one of each indexing backward;
+   finite losses); one step's loss
    parts and gradients and the params after 3 steps, card against CPU; a
    step's gradients twice from one state, bit-identical on the card and on
    the CPU; warm ms per train step split into prepare (with GT), forward
    (with losses), backward and optimizer; the backward kernels timed on the
-   inputs the main path gave them;
+   inputs the main path gave them, the indexing backwards too (bit-equal to
+   ``index_put_``), and the reads' forward and backward under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the maps make no host sync);
 7. the committed weights reproduce JAX's 3-step train trajectory
    ``tests/fixtures/golden_config1_train.npz`` on the card;
 8. config 2 (``configs/config2_scannet_2cm.yaml``, ``data.dataset=synthetic``
    the only override) at full width, bf16: ``infer.main`` on one batch
    (dense tail from scale 2; one launch per sparse conv) and
    ``train.main`` for 3 steps (dense tail from scale 3; forward, dgrad and
-   wgrad launches per step; finite losses, parameters f32); on
+   wgrad launches per step, and each indexing backward once a scene; finite
+   losses, parameters f32); on
    ``bench.py``'s scenes (262144 points, 12 instances, augmented and
    cropped): one scene's integer tables and dense occupancy bit-exact
    against the CPU, the overflow counters (0) and ``dense_tail_oob``
    against a count of the dropped sites made in numpy from the points,
    every sparse conv of one eval forward and every forward, dgrad and
-   wgrad of one train step against its plain version, dense-2 against the same weights
+   wgrad of one train step against its plain version, its two indexing
+   backwards (a record a scene) as in phase 6, dense-2 against the same weights
    converted to fully sparse in f32 and bf16 on a batch that drops no
    site, the eval step at batch 2 against each scene alone (packed mask
    bits, proposal scores and class logits ``torch.equal``: the dense tail
@@ -127,7 +142,8 @@ nonzero:
    '_chip_smoke_dp', smi)"``;
 12. the tools and the checkpoint form conversion, config 2 at full width:
    ``train.main --profile`` for 2 steps (its trace parses as JSON and names
-   the three sparse-conv kernels; its size and top kernels printed),
+   the three sparse-conv kernels and the two indexing backwards'; its size
+   and top kernels printed),
    ``utils/flops.py::collect_rulebook_stats`` on one batch on the card equal
    to the CPU's, with the useful forward FLOPs; ``tools/size_capacities``
    over phase 10's ScanNet files through the host-voxelizing Loader, its
@@ -141,7 +157,8 @@ nonzero:
 13. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
    under ``config1``, config1_pool_dropout's under ``pool_dropout``;
    launches of every path under ``launches_by_path``, phase 11's ranks and
-   phase 12's paths too), then as the last line ``{"ok": true, "device":
+   phase 12's paths too; ``roi_crop_grad`` and ``mask_read_grad`` with
+   their maps' ms and whether every comparison was bit-equal), then as the last line ``{"ok": true, "device":
    {...}}``.
 
 TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
@@ -155,6 +172,7 @@ removed at the end.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
 import itertools
@@ -183,11 +201,13 @@ from sparse_rcnn_tpu_torch.data.augment import augment_scene
 from sparse_rcnn_tpu_torch import native
 from sparse_rcnn_tpu_torch.data.pipeline import VOXEL_KEYS, Loader, collate, device_batches
 from sparse_rcnn_tpu_torch.data.ply import write_ply
+from sparse_rcnn_tpu_torch.models import heads as PHd
 from sparse_rcnn_tpu_torch.models.convert import convert_variables, tree_boundary
 from sparse_rcnn_tpu_torch.models.layers import SparseBasicBlock, SparseConv
 from sparse_rcnn_tpu_torch.models import unet as U
 from sparse_rcnn_tpu_torch.models.transfer import from_flax, unflatten_variables
 from sparse_rcnn_tpu_torch.models.unet import scatter_to_grid
+from sparse_rcnn_tpu_torch.ops import index_grad as IG
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
 from sparse_rcnn_tpu_torch.ops import voxelize as V
 from sparse_rcnn_tpu_torch.parallel import context as DPC
@@ -277,12 +297,13 @@ DP_TOL = {"float32": {"loss_rtol": 1e-5, "params_atol": 1e-5, "grads_rel": 2e-2}
                        "grads_rel": DENSE_SPARSE_BF16}}
 
 # phase 12: the tools and the checkpoint form conversion on config 2.
-# PROFILE_STEPS: train.main --profile's steps; TRACE_KERNELS: the sparse-conv
+# PROFILE_STEPS: train.main --profile's steps; TRACE_KERNELS: the hand
 # kernels its trace must name; SIZE_SCENES: size_capacities' scenes (phase
 # 10's 4 ScanNet train scenes)
 PROFILE_STEPS = 2
 TRACE_KERNELS = ("sparse_conv_fwd_kernel", "sparse_conv_wgrad_partial_kernel",
-                 "sparse_conv_wgrad_reduce_kernel")
+                 "sparse_conv_wgrad_reduce_kernel", "roi_crop_grad_kernel",
+                 "mask_read_grad_kernel")
 SIZE_SCENES = 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
@@ -338,13 +359,16 @@ REPS = {"kernel": dict(reps=30, inner=10), "plain": dict(reps=20, inner=1),
         "library": dict(reps=20, inner=10)}
 QUICK_REPS = {"kernel": dict(reps=10, inner=5), "plain": dict(reps=5, inner=1),
               "library": dict(reps=5, inner=2)}
-PER_STEP = (10, 9, 10)          # forward, dgrad (the stem's input needs none), wgrad
+# forward, dgrad (the stem's input needs none), wgrad, roi_crop_grad and
+# mask_read_grad (once a scene; config 1 trains on batches of 1)
+PER_STEP = (10, 9, 10, 1, 1)
 # card against CPU, one config-1 step, per parameter relative to the
 # largest entry of its gradient. Outside the RoI head: with the mask weight
 # 0, f32 sums of up to 32768*27 products in other orders through ~20
 # layers, 1e-4 (measured worst 1.1e-5); with the full loss the card also
-# adds the bf16-read mask-logit gradient in f32 (CUDA index_put_
-# accumulates in f32) where the CPU adds it in bf16, 1e-3 (measured worst
+# adds the bf16-read mask-logit gradient in f32 (the mask_read_grad kernel
+# sums each cell's entries in f32, in the order of CUDA's index_put_, and
+# rounds once to bf16) where the CPU adds it in bf16, 1e-3 (measured worst
 # 1.1e-5). The RoI head's dense convs (cuDNN) run on a trilinear crop whose
 # box corners differ between the devices in their last bits (proposals are
 # decoded through exp), which moves the sampling weights and flips a ReLU
@@ -412,15 +436,19 @@ def card_info() -> str:
 
 
 def build() -> None:
+    """Both CUDA libraries, one ``nvcc`` each, started together."""
     t0 = time.perf_counter()
-    so, messages = sc.build_kernel()
-    sc.KERNEL.load()
-    sc.WGRAD.load()
-    log(f"[phase 2] built {os.path.relpath(so, ROOT)} in "
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(lambda a: sc.build_kernel(*a),
+                              [(sc._SRC, "sparse_conv"), (IG._SRC, "index_grad")]))
+    for k in (sc.KERNEL, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_GRAD):
+        k.load()
+    log(f"[phase 2] built {', '.join(os.path.relpath(so, ROOT) for so, _ in built)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in messages.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  nvcc: {line.strip()}")
+    for _, messages in built:
+        for line in messages.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  nvcc: {line.strip()}")
 
 
 # --------------------------------------------------------------------------
@@ -659,11 +687,15 @@ def check_ties() -> None:
 def capture(fn, *names: str) -> list:
     """Run ``fn`` and return the arguments of every call it makes to
     ``sc.<name>`` (``conv_forward``, ``conv_dgrad`` or ``conv_wgrad``, the
-    dispatchers of the sparse conv's autograd Function): a list of calls,
-    or with several names one such list for each. The calls still launch
-    the kernels."""
+    dispatchers of the sparse conv's autograd Function) or ``IG.<name>``
+    (``roi_crop_grad``, ``mask_read_grad``, the indexing backwards', or
+    ``mask_read``): a list
+    of calls, or with several names one such list for each. The calls still
+    launch the kernels."""
     calls = {name: [] for name in names}
-    real = {name: getattr(sc, name) for name in names}
+    mods = {name: IG if name in ("roi_crop_grad", "mask_read_grad", "mask_read") else sc
+            for name in names}
+    real = {name: getattr(mods[name], name) for name in names}
 
     def recording(name):
         def record(*args):
@@ -672,12 +704,12 @@ def capture(fn, *names: str) -> list:
         return record
 
     for name in names:
-        setattr(sc, name, recording(name))
+        setattr(mods[name], name, recording(name))
     try:
         fn()
     finally:
         for name in names:
-            setattr(sc, name, real[name])
+            setattr(mods[name], name, real[name])
     return calls[names[0]] if len(names) == 1 else [calls[name] for name in names]
 
 
@@ -736,7 +768,7 @@ def phase_slice(out_dir: str, no_ckpt: str) -> tuple:
                 "--device", DEVICE])
     torch.cuda.synchronize()
     launches = sc.KERNEL.launches
-    if counts()[1:] != (0, 0):
+    if counts()[1:] != (0, 0, 0, 0):
         raise AssertionError(f"inference launched backward kernels: {counts()}")
     forwards = -(-n_scenes // cfg.data.batch_size)
     log(f"  sparse_conv launches in infer.main: {launches} "
@@ -929,15 +961,207 @@ def phase_backward_kernels() -> list:
 
 
 # --------------------------------------------------------------------------
+# phase 3, the indexing backwards: roi_crop_grad and mask_read_grad against
+# their plain version, CUDA's accumulating index_put_, bit for bit
+
+
+def roi_grad_inputs(m, c, p, d, dtype, case, seed):
+    """The crop's backward inputs for p boxes of d³ samples over m rows of
+    c channels, on the card: g [S, c], w [8, S] in ``dtype``, idx int32
+    [8, S] with about 40 % of the corners dead; ``all_dead`` every corner,
+    ``one_row`` every live corner into row 0 (the composite's row-0 run),
+    ``box0_dead`` every corner of box 0."""
+    s = p * d ** 3
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    idx = torch.randint(0, m, (8, s), generator=gen, device=DEVICE, dtype=torch.int32)
+    idx = torch.where(torch.rand((8, s), generator=gen, device=DEVICE) < 0.4, -1, idx)
+    if case == "all_dead":
+        idx[:] = -1
+    elif case == "one_row":
+        idx = torch.where(idx >= 0, 0, idx)
+    elif case == "box0_dead":
+        idx[:, :d ** 3] = -1
+    g = torch.randn((s, c), generator=gen, device=DEVICE).to(dtype)
+    w = torch.rand((8, s), generator=gen, device=DEVICE).to(dtype)
+    return g, w, idx.to(torch.int32).contiguous(), m
+
+
+def mask_grad_inputs(p, grid, n, case, seed):
+    """The mask read's backward inputs, on the card: the cells that
+    ``sample_mask_at_positions`` reads for p random boxes (sides 5-30
+    voxels) and n points in a 100-voxel cube; ``empty_box`` moves box 0
+    away from every point (all its points on border cells), ``one_cell``
+    puts every point of proposal 0 in cell 0. Returns (g bf16 [p, n],
+    cell, cells)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    lo = torch.rand((p, 3), generator=gen, device=DEVICE) * 80
+    boxes = torch.cat([lo, lo + 5 + 25 * torch.rand((p, 3), generator=gen, device=DEVICE)], 1)
+    if case == "empty_box":
+        boxes[0] = torch.tensor([500.0, 500, 500, 510, 510, 510], device=DEVICE)
+    pos = torch.rand((n, 3), generator=gen, device=DEVICE) * 100
+    mask = torch.zeros((p, grid, grid, grid), device=DEVICE)
+    (_, cell), = capture(lambda: PHd.sample_mask_at_positions(mask, boxes, pos), "mask_read")
+    if case == "one_cell":
+        cell[0] = 0
+    g = torch.randn((p, n), generator=gen, device=DEVICE).to(torch.bfloat16)
+    return g, cell.contiguous(), grid ** 3
+
+
+def index_grad_record(name, kernel, got, again, want, nbytes, runs, longest, reps) -> dict:
+    """A kernel of ``ops/index_grad.py`` against its plain version: bit
+    equality, bit identity across two launches, card times of ``runs``
+    (kernel, map, plain, library) and the bound, ``nbytes`` over the
+    card's memory rate."""
+    torch.cuda.synchronize()
+    rec = {"conv": name, "kernel": kernel, "dtype": str(got.dtype).replace("torch.", ""),
+           "max_abs_err": (got.float() - want.float()).abs().max().item() if got.numel() else 0.0,
+           "bit_equal": bool(torch.equal(got, want)),
+           "bit_identical": bool(torch.equal(got, again)), "longest_run": longest,
+           **{f"{k}_ms": time_ms(fn, **reps["plain" if k in ("plain", "library") else "kernel"])
+              for k, fn in runs.items()},
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": nbytes,
+           "flops": 0}
+    rec["ok"] = rec["bit_equal"] and rec["bit_identical"]
+    log(f"  {kernel} {name:22s} {rec['dtype']:8s} longest run {longest}: "
+        f"kernel_ms={rec['kernel_ms']:.4f} map_ms={rec['map_ms']:.4f} "
+        f"plain_ms={rec['plain_ms']:.4f} library_ms(index_put_)={rec['library_ms']:.4f} "
+        f"bound_ms={rec['bound_ms']:.4f} (bytes) max_abs_err={rec['max_abs_err']:.3e} "
+        f"bit_equal={rec['bit_equal']} bit_identical={rec['bit_identical']} "
+        f"{'ok' if rec['ok'] else 'MISMATCH'}")
+    return rec
+
+
+def measure_roi_grad(name, g, w, idx, m, reps=None) -> dict:
+    """roi_crop_grad on (g [S, C], w [8, S], idx [8, S], m rows). Library:
+    the ``index_put_`` of the plain version alone, its values made outside
+    the timing. Bound: g, the live corners' w and map entries, the offsets
+    and d_feats, each once."""
+    rmap = IG.roi_crop_map(idx, m)
+    got, again = (IG.ROI_CROP_GRAD(g, w, rmap, m) for _ in range(2))
+    want = IG.roi_crop_grad_reference(g, w, idx, m)
+    v = (g[None] * w[..., None]) * (idx >= 0)[..., None].to(g.dtype)
+    safe = idx.clamp(0, m - 1).to(torch.int64)
+    buf = torch.zeros((m, g.shape[1]), dtype=g.dtype, device=g.device)
+    live = int(rmap[1][-1])
+    esz = g.element_size()
+    nbytes = g.numel() * esz + live * (esz + 4) + (m + 1) * 4 + m * g.shape[1] * esz
+    rec = index_grad_record(name, "roi_crop_grad", got, again, want, nbytes, {
+        "kernel": lambda: IG.ROI_CROP_GRAD(g, w, rmap, m),
+        "map": lambda: IG.roi_crop_map(idx, m),
+        "plain": lambda: IG.roi_crop_grad_reference(g, w, idx, m),
+        "library": lambda: buf.index_put_((safe,), v, accumulate=True)},
+        int(rmap[1].diff().max()) if m else 0, reps or REPS)
+    rec.update(M=m, C=g.shape[1], S=g.shape[0], live_entries=live)
+    return rec
+
+
+def measure_mask_grad(name, g, cell, cells, reps=None) -> dict:
+    """mask_read_grad on (g bf16 [P, N], cell [P, N] of ``cells``); library
+    and bound as :func:`measure_roi_grad`'s (every entry of the map)."""
+    p = g.shape[0]
+    rmap = IG.mask_read_map(cell, cells)
+    got, again = (IG.MASK_READ_GRAD(g, rmap, p * cells) for _ in range(2))
+    want = IG.mask_read_grad_reference(g, cell, cells).reshape(-1)
+    prow = torch.arange(p, device=g.device)[:, None]
+    ix = cell.to(torch.int64)
+    buf = torch.zeros((p, cells), dtype=g.dtype, device=g.device)
+    nbytes = g.numel() * (2 + 4) + (p * cells + 1) * 4 + p * cells * 2
+    rec = index_grad_record(name, "mask_read_grad", got, again, want, nbytes, {
+        "kernel": lambda: IG.MASK_READ_GRAD(g, rmap, p * cells),
+        "map": lambda: IG.mask_read_map(cell, cells),
+        "plain": lambda: IG.mask_read_grad_reference(g, cell, cells),
+        "library": lambda: buf.index_put_((prow, ix), g, accumulate=True)},
+        int(rmap[1].diff().max()), reps or REPS)
+    rec.update(P=p, N=g.shape[1], cells=cells)
+    return rec
+
+
+# (name, M, C, P, D, case) of roi_crop_grad, each in f32 and bf16 (see
+# roi_grad_inputs); (name, P, G, N, case) of mask_read_grad (see
+# mask_grad_inputs; "tail" runs shorter than a warp's pass)
+ROI_GRAD_EDGES = [
+    ("random_c16", 32768, 16, 32, 7, "random"),
+    ("random_c32", 262144, 32, 128, 7, "random"),
+    ("all_dead", 32768, 16, 32, 7, "all_dead"),
+    ("one_row", 32768, 32, 32, 7, "one_row"),
+    ("m_below_block_p1", 5, 16, 1, 7, "random"),
+    ("empty_box", 32768, 32, 8, 7, "box0_dead"),
+]
+MASK_GRAD_EDGES = [
+    ("random", 32, 14, 32768, "random"),
+    ("p1", 1, 14, 32768, "random"),
+    ("one_cell", 4, 14, 32768, "one_cell"),
+    ("empty_box", 8, 14, 32768, "empty_box"),
+    ("tail", 2, 4, 37, "random"),
+]
+
+
+def phase_index_grad() -> list:
+    log("[phase 3, indexing backwards] roi_crop_grad and mask_read_grad vs their plain "
+        "version (CUDA index_put_, accumulate=True): bit-equal and bit-identical across two "
+        "launches, on edge cases")
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, *shape, case) in enumerate(ROI_GRAD_EDGES):
+            recs.append(measure_roi_grad(name, *roi_grad_inputs(*shape, dtype, case, 600 + i),
+                                         reps=QUICK_REPS))
+    for i, (name, *shape, case) in enumerate(MASK_GRAD_EDGES):
+        recs.append(measure_mask_grad(name, *mask_grad_inputs(*shape, case, 700 + i),
+                                      reps=QUICK_REPS))
+    require_ok(recs, "indexing backwards, edge cases")
+    return recs
+
+
+def main_path_index_grad(rg, mg, reps=None) -> tuple:
+    """Both kernels against their plain version on the captured calls of one
+    train step (``capture``'s records of ``roi_crop_grad`` and
+    ``mask_read_grad``), one record a scene; then the reads' forward and
+    backward, the maps built, under ``torch.cuda.set_sync_debug_mode
+    ("error")``: no host sync."""
+    roi = [measure_roi_grad(f"scene {i}", g, w, idx, m, reps) for i, (g, w, idx, _, m)
+           in enumerate(rg)]
+    mask = [measure_mask_grad(f"scene {i}", g, cell, cells, reps) for i, (g, cell, _, cells)
+            in enumerate(mg)]
+    require_ok(roi + mask, "indexing backwards, main-path inputs")
+    g, w, idx, _, m = rg[0]
+    gm, cell, _, cells = mg[0]
+    feats = torch.randn((m, g.shape[1]), device=DEVICE).to(g.dtype).requires_grad_(True)
+    grid = torch.zeros((gm.shape[0], cells), device=DEVICE, dtype=torch.bfloat16,
+                       requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        IG.corner_gather(feats, idx, w.float()).backward(g)
+        IG.mask_read(grid, cell).backward(gm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  the reads' forward (the maps built) and backward (the kernels) under "
+        "set_sync_debug_mode('error'): no host sync")
+    return roi, mask
+
+
+# --------------------------------------------------------------------------
 # phase 6: the config-1 training slice on the card, against the CPU
 
 
+KERNELS = (sc.KERNEL, sc.DGRAD, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_GRAD)
+
+
 def counts() -> tuple:
-    return sc.KERNEL.launches, sc.DGRAD.launches, sc.WGRAD.launches
+    """Launches (forward, dgrad, wgrad, roi_crop_grad, mask_read_grad)."""
+    return tuple(k.launches for k in KERNELS)
 
 
 def reset_counts() -> None:
-    sc.KERNEL.launches = sc.DGRAD.launches = sc.WGRAD.launches = 0
+    for k in KERNELS:
+        k.launches = 0
+
+
+def want_launches(fwd: int, dgrad: int = 0, wgrad: int = 0, scene_steps: int = 0) -> tuple:
+    """The ``counts()`` a path should give: the two indexing backwards
+    launch once per scene per train step, and never in an eval."""
+    return fwd, dgrad, wgrad, scene_steps, scene_steps
 
 
 def grad_errors(grads_a, grads_b, names) -> dict:
@@ -970,12 +1194,14 @@ def step_split(cfg, state, batch, reps: int = 5) -> dict:
 
 
 def main_path_backward(cfg, model, batch) -> tuple:
-    """The dgrad and wgrad kernels against their plain versions, timed, on
-    the inputs that one config-1 train step's backward gives them."""
-    dg, wg = capture(lambda: TL.loss_and_grads(cfg, model, batch), "conv_dgrad",
-                     "conv_wgrad")
-    if (len(dg), len(wg)) != PER_STEP[1:]:
-        raise AssertionError(f"{len(dg)} dgrad and {len(wg)} wgrad calls in one step")
+    """The dgrad, wgrad, roi_crop_grad and mask_read_grad kernels against
+    their plain versions, timed, on the inputs that one config-1 train
+    step's backward gives them."""
+    dg, wg, rg, mg = capture(lambda: TL.loss_and_grads(cfg, model, batch), "conv_dgrad",
+                             "conv_wgrad", "roi_crop_grad", "mask_read_grad")
+    if (len(dg), len(wg), len(rg), len(mg)) != PER_STEP[1:]:
+        raise AssertionError(f"{len(dg)} dgrad, {len(wg)} wgrad, {len(rg)} roi_crop_grad and "
+                             f"{len(mg)} mask_read_grad calls in one step")
     log("  dgrad and wgrad kernels vs plain versions on the inputs of the main path "
         "(one config-1 train step, in backward order; tolerances as in phase 3)")
 
@@ -989,7 +1215,9 @@ def main_path_backward(cfg, model, batch) -> tuple:
         + ", ".join(f"{r['dead_pair_share']:.3f}" for r in d)
         + "; wgrad (32-row stage, tap): "
         + ", ".join(f"{r['dead_pair_share']:.3f}" for r in w_))
-    return d, w_
+    log("  roi_crop_grad and mask_read_grad vs their plain version on the inputs of the "
+        "main path (one config-1 train step)")
+    return (d, w_, *main_path_index_grad(rg, mg))
 
 
 def phase_train(out_dir: str) -> dict:
@@ -1013,8 +1241,8 @@ def phase_train(out_dir: str) -> dict:
     torch.cuda.synchronize()
     launches = counts()
     want = tuple(TRAIN_STEPS * n for n in PER_STEP)
-    log(f"  launches in train.main over {TRAIN_STEPS} steps (forward, dgrad, wgrad): "
-        f"{launches}, expected {want}")
+    log(f"  launches in train.main over {TRAIN_STEPS} steps (forward, dgrad, wgrad, "
+        f"roi_crop_grad, mask_read_grad): {launches}, expected {want}")
     if launches != want:
         raise AssertionError(f"train.main launched {launches}, expected {want}")
     with open(log_path) as f:
@@ -1103,7 +1331,8 @@ def phase_train(out_dir: str) -> dict:
     log("  warm ms per train step (host clock, synchronised after each stage, median "
         f"of 5 per batch, mean of {len(split)} batches): "
         + json.dumps({k: round(v, 3) for k, v in report["step_ms"].items()}))
-    report["dgrad_main_path"], report["wgrad_main_path"] = main_path_backward(
+    (report["dgrad_main_path"], report["wgrad_main_path"], report["roi_grad_main_path"],
+     report["mask_grad_main_path"]) = main_path_backward(
         cfg, copy.deepcopy(init).to(DEVICE), TL.to_device(batches[0], DEVICE, TL.TRAIN_KEYS))
     return report
 
@@ -1339,9 +1568,9 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
                 "--out-dir", os.path.join(out_dir, "infer_config2"), "--device", DEVICE])
     torch.cuda.synchronize()
     rep["launches_infer"] = counts()
-    log(f"  launches in infer.main, one batch (forward, dgrad, wgrad): {counts()}, "
-        f"expected ({n_eval}, 0, 0)")
-    if counts() != (n_eval, 0, 0):
+    log(f"  launches in infer.main, one batch (forward, dgrad, wgrad, roi_crop_grad, "
+        f"mask_read_grad): {counts()}, expected {want_launches(n_eval)}")
+    if counts() != want_launches(n_eval):
         raise AssertionError(f"config-2 infer.main launched {counts()}")
     log_path = os.path.join(out_dir, "train_log_config2.jsonl")
     if os.path.exists(log_path):
@@ -1353,7 +1582,8 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
                             "--device", DEVICE, "--log-file", log_path])
     torch.cuda.synchronize()
     rep["launches_train"] = counts()
-    want = (C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * (n_train - 1), C2_TRAIN_STEPS * n_train)
+    want = want_launches(C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * (n_train - 1),
+                         C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * cfg.data.batch_size)
     log(f"  launches in train.main over {C2_TRAIN_STEPS} steps: {counts()}, expected {want}")
     if counts() != want:
         raise AssertionError(f"config-2 train.main launched {counts()}, expected {want}")
@@ -1426,11 +1656,13 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
 
     # train: the kernels on one step's inputs, run to run, remat
     trb = [TL.to_device(b, DEVICE, TL.TRAIN_KEYS) for b in batches]
-    fw, dg, wg = capture(lambda: TL.loss_and_grads(tcfg, copy.deepcopy(init), trb[0]),
-                         "conv_forward", "conv_dgrad", "conv_wgrad")
-    if (len(fw), len(dg), len(wg)) != (n_train, n_train - 1, n_train):
-        raise AssertionError(f"{len(fw)} forward, {len(dg)} dgrad and {len(wg)} wgrad calls "
-                             "in one step")
+    fw, dg, wg, rg, mg = capture(lambda: TL.loss_and_grads(tcfg, copy.deepcopy(init), trb[0]),
+                                 "conv_forward", "conv_dgrad", "conv_wgrad", "roi_crop_grad",
+                                 "mask_read_grad")
+    if (len(fw), len(dg), len(wg), len(rg), len(mg)) != want_launches(n_train, n_train - 1,
+                                                                      n_train, bs):
+        raise AssertionError(f"{len(fw)} forward, {len(dg)} dgrad, {len(wg)} wgrad, {len(rg)} "
+                             f"roi_crop_grad and {len(mg)} mask_read_grad calls in one step")
     log(f"  forward, dgrad and wgrad kernels vs plain versions on the inputs of one config-2 "
         f"train step ({len(fw)}, {len(dg)} and {len(wg)} calls, bf16, dense-3; tolerances as "
         "in phase 3)")
@@ -1452,7 +1684,11 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
     rep["wgrad_partials_max_bytes"] = max(partials)
     log(f"  wgrad partials buffer: largest {max(partials) / 2**20:.1f} MiB "
         f"(K x B*chunks x Cin x Cout f32), sum over the step {sum(partials) / 2**20:.1f} MiB")
-    del fw, dg, wg
+    log("  roi_crop_grad and mask_read_grad vs their plain version on the inputs of one "
+        "config-2 train step (a record a scene)")
+    rep["roi_grad_main_path"], rep["mask_grad_main_path"] = main_path_index_grad(
+        rg, mg, QUICK_REPS)
+    del fw, dg, wg, rg, mg
 
     runs = {}
     for remat in (False, True):
@@ -1536,7 +1772,7 @@ def run_cli(fn, argv, what: str):
     out = fn(argv)
     torch.cuda.synchronize()
     got = counts()
-    log(f"  {what}: launches (forward, dgrad, wgrad) {got}")
+    log(f"  {what}: launches (forward, dgrad, wgrad, roi_crop_grad, mask_read_grad) {got}")
     return out, got
 
 
@@ -1715,8 +1951,8 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
                                       "train.total_steps=4", "--device", DEVICE,
                                       "--log-file", log_path], "config1 train.main, 4 steps")
     evals_fwd = 2 * n // cfg.data.batch_size        # 2 evals of 3 scenes, batch 1
-    expect(got, (4 * PER_STEP[0] + PER_STEP[0] * evals_fwd, 4 * PER_STEP[1], 4 * PER_STEP[2]),
-           "config1 train.main launches")
+    expect(got, want_launches(4 * PER_STEP[0] + PER_STEP[0] * evals_fwd, 4 * PER_STEP[1],
+                              4 * PER_STEP[2], 4 * PER_STEP[3]), "config1 train.main launches")
     rep["launches"]["config1 train.main (4 steps, 2 evals)"] = got
     lines = jsonl(log_path)
     evals = [r for r in lines if r["kind"] == "eval"]
@@ -1760,7 +1996,8 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
     _, got = run_cli(train_cli.main, ["--config", CONFIG1, *sets, "--set",
                                       "train.total_steps=6", "--device", DEVICE, "--resume",
                                       "--log-file", log_path], "config1 train.main --resume")
-    expect(got, (2 * PER_STEP[0] + PER_STEP[0] * n, 2 * PER_STEP[1], 2 * PER_STEP[2]),
+    expect(got, want_launches(2 * PER_STEP[0] + PER_STEP[0] * n, 2 * PER_STEP[1],
+                              2 * PER_STEP[2], 2 * PER_STEP[3]),
            "config1 train.main --resume launches")
     rep["launches"]["config1 train.main --resume (2 steps, 1 eval)"] = got
     lines = jsonl(log_path)
@@ -1770,7 +2007,7 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
         raise AssertionError(f"resume: {resumed}, steps after it {after}")
     res1, got = run_cli(eval_cli.main, ["--config", CONFIG1, *sets, "--best", "--per-scene",
                                         "--device", DEVICE], "config1 eval.main --best")
-    expect(got, (PER_STEP[0] * n, 0, 0), "config1 eval.main launches")
+    expect(got, want_launches(PER_STEP[0] * n), "config1 eval.main launches")
     rep["launches"]["config1 eval.main --best (3 scenes)"] = got
     if res1["scenes"] != n or len(res1["per_scene_mAP@0.5"]) != n:
         raise AssertionError(f"config1 eval.main: {res1}")
@@ -1778,7 +2015,7 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
     _, got = run_cli(infer.main, ["--config", CONFIG1, *sets, "--best", "--num-scenes", str(n),
                                   "--out-dir", inf_dir, "--device", DEVICE],
                      "config1 infer.main --best")
-    expect(got, (PER_STEP[0] * n, 0, 0), "config1 infer.main launches")
+    expect(got, want_launches(PER_STEP[0] * n), "config1 infer.main launches")
     rep["launches"]["config1 infer.main --best (3 scenes)"] = got
     for i in range(n):
         with np.load(os.path.join(inf_dir, f"scene{i:04d}.npz")) as f:
@@ -1821,12 +2058,12 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
                                           "train.total_steps=2", "--device", DEVICE],
                          "config2 train.main, 2 steps")
     evals_fwd = -(-n // cfg2.data.batch_size)
-    expect(got, (2 * n_train + evals_fwd * n_eval, 2 * (n_train - 1), 2 * n_train),
-           "config2 train.main launches")
+    expect(got, want_launches(2 * n_train + evals_fwd * n_eval, 2 * (n_train - 1), 2 * n_train,
+                              2 * cfg2.data.batch_size), "config2 train.main launches")
     rep["launches"]["config2 train.main (2 steps, 1 eval)"] = got
     res2, got = run_cli(eval_cli.main, ["--config", CONFIG2, *sets2, "--best",
                                         "--device", DEVICE], "config2 eval.main --best")
-    expect(got, (evals_fwd * n_eval, 0, 0), "config2 eval.main launches")
+    expect(got, want_launches(evals_fwd * n_eval), "config2 eval.main launches")
     rep["launches"]["config2 eval.main --best (3 scenes)"] = got
     if res2["scenes"] != n:
         raise AssertionError(f"config2 eval.main scored {res2['scenes']} scenes, not {n}")
@@ -2105,7 +2342,7 @@ def reader_config(name, path, sets, out_dir, tmp_dir, rep) -> dict:
     inf_dir = os.path.join(out_dir, f"infer_{name}")
     _, got = run_cli(infer.main, args + ["--num-scenes", str(bs), "--out-dir", inf_dir,
                                          "--device", DEVICE], f"{name} infer.main")
-    expect(got, (n_eval, 0, 0), f"{name} infer.main launches")
+    expect(got, want_launches(n_eval), f"{name} infer.main launches")
     rep["launches"][f"{name} infer.main (1 batch)"] = got
     for i in range(bs):
         with np.load(os.path.join(inf_dir, f"scene{i:04d}.npz")) as f:
@@ -2118,7 +2355,8 @@ def reader_config(name, path, sets, out_dir, tmp_dir, rep) -> dict:
     state, got = run_cli(train_cli.main, args + ["--set", "train.total_steps=2", "--device",
                                                  DEVICE, "--log-file", log_path],
                          f"{name} train.main, 2 steps")
-    expect(got, (2 * n_fwd, 2 * (n_train - 1), 2 * n_train), f"{name} train.main launches")
+    expect(got, want_launches(2 * n_fwd, 2 * (n_train - 1), 2 * n_train, 2 * bs),
+           f"{name} train.main launches")
     rep["launches"][f"{name} train.main (2 steps)"] = got
     out = {"convs": {"eval": n_eval, "train": n_train, "train_forward_launches": n_fwd},
            "losses": train_losses(log_path, 2, f"{name} train.main"),
@@ -2169,8 +2407,8 @@ def phase_data_layer(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
                                              "--log-file", log_path],
                      "config2 (ScanNet reader, Loader) train.main, 3 steps")
     evals_fwd = -(-EVAL_SCENES // d.batch_size)
-    expect(got, (3 * n_train + evals_fwd * n_eval, 3 * (n_train - 1), 3 * n_train),
-           "config2 ScanNet train.main launches")
+    expect(got, want_launches(3 * n_train + evals_fwd * n_eval, 3 * (n_train - 1), 3 * n_train,
+                              3 * d.batch_size), "config2 ScanNet train.main launches")
     rep["launches"]["config2 scannet train.main (3 steps, 1 eval)"] = got
     rep["config2_losses"] = train_losses(log_path, 3, "config2 ScanNet train.main")
     loader_line = [r for r in jsonl(log_path) if r["kind"] == "loader"]
@@ -2183,7 +2421,7 @@ def phase_data_layer(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
         + json.dumps([{k: round(v, 4) for k, v in r.items()} for r in rep["config2_losses"]]))
     res, got = run_cli(eval_cli.main, args + ["--best", "--device", DEVICE],
                        "config2 (ScanNet reader) eval.main --best")
-    expect(got, (evals_fwd * n_eval, 0, 0), "config2 ScanNet eval.main launches")
+    expect(got, want_launches(evals_fwd * n_eval), "config2 ScanNet eval.main launches")
     rep["launches"]["config2 scannet eval.main --best (3 scenes)"] = got
     if res["scenes"] != EVAL_SCENES:
         raise AssertionError(f"config2 ScanNet eval.main scored {res['scenes']} scenes")
@@ -2245,7 +2483,7 @@ def phase_data_layer(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
                                          "--num-scenes", "3", "--out-dir", inf_dir,
                                          "--device", DEVICE], "pool_dropout infer.main")
     forwards = -(-3 // cfg.data.batch_size)
-    expect(got, (forwards * n_fwd, 0, 0), "pool_dropout infer.main launches")
+    expect(got, want_launches(forwards * n_fwd), "pool_dropout infer.main launches")
     rep["launches"]["pool_dropout infer.main (3 scenes)"] = got
     states, losses = [], []
     for run in (1, 2):
@@ -2257,8 +2495,10 @@ def phase_data_layer(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
             "--set", f"train.total_steps={POOL_TRAIN_STEPS}",
             "--set", f"train.checkpoint_dir={os.path.join(tmp_dir, f'ckpt_pool_{run}')}",
             "--device", DEVICE, "--log-file", log_path], f"pool_dropout train.main, run {run}")
-        expect(got, (POOL_TRAIN_STEPS * n_fwd, POOL_TRAIN_STEPS * (n_fwd - 1),
-                     POOL_TRAIN_STEPS * n_fwd), "pool_dropout train.main launches")
+        expect(got, want_launches(POOL_TRAIN_STEPS * n_fwd, POOL_TRAIN_STEPS * (n_fwd - 1),
+                                  POOL_TRAIN_STEPS * n_fwd,
+                                  POOL_TRAIN_STEPS * cfg.data.batch_size),
+               "pool_dropout train.main launches")
         rep["launches"][f"pool_dropout train.main ({POOL_TRAIN_STEPS} steps, run {run})"] = got
         states.append(st)
         losses.append(train_losses(log_path, POOL_TRAIN_STEPS, "pool_dropout train.main"))
@@ -2409,8 +2649,9 @@ def dp_world1(out_dir: str, tmp_dir: str) -> dict:
     _, got = run_cli(train_cli.main, args + [
         "--set", f"train.total_steps={DP_STEPS}", "--device", DEVICE, "--dist-backend", "nccl",
         "--log-file", log_path], f"config5 world 1 (NCCL) train.main, {DP_STEPS} steps")
-    expect(got, (DP_STEPS * n_fwd + EVAL_SCENES * n_eval, DP_STEPS * (n_train - 1),
-                 DP_STEPS * n_train), "config5 world-1 train.main launches")
+    expect(got, want_launches(DP_STEPS * n_fwd + EVAL_SCENES * n_eval, DP_STEPS * (n_train - 1),
+                              DP_STEPS * n_train, DP_STEPS * cfg.data.batch_size),
+           "config5 world-1 train.main launches")
     lines = jsonl(log_path)
     head = lines[0]
     evals = [r for r in lines if r["kind"] == "eval"]
@@ -2433,7 +2674,8 @@ def dp_world1(out_dir: str, tmp_dir: str) -> dict:
     n = require_equal_states(a, b, "config5 world-1 DP step against TL.train_step")
     if sorted(ma) != sorted(mb) or not all(torch.equal(ma[k], mb[k]) for k in mb):
         raise AssertionError(f"config5 world-1 DP metrics {ma} against {mb}")
-    expect(launches, (n_fwd, n_train - 1, n_train), "config5 world-1 DP step launches")
+    expect(launches, want_launches(n_fwd, n_train - 1, n_train, cfg.data.batch_size),
+           "config5 world-1 DP step launches")
     n_params = sum(p.numel() for p in a.model.parameters())
     step = DP.make_parallel_train_step(cfg, world)
     rec.update({
@@ -2465,7 +2707,8 @@ def dp_world2(out_dir: str, tmp_dir: str) -> dict:
                     world=2) as loader:
             share = TL.to_device(next(loader), device, TL.TRAIN_KEYS)
         state, m, launches, (calls, nbytes) = dp_step_record(world, cfg, init, share)
-        expect(launches, (n_fwd, n_train - 1, n_train), f"config5 world-2 {dtype} DP launches")
+        expect(launches, want_launches(n_fwd, n_train - 1, n_train, 1),    # a scene a rank
+               f"config5 world-2 {dtype} DP launches")
         ranks = DP.gather_to_rank0(digests(state), world)
         r = {"launches": launches, "all_reduces": calls, "bytes_all_reduced": nbytes,
              "metrics": {k: float(v) for k, v in m.items()}}
@@ -2504,7 +2747,8 @@ def dp_world2(out_dir: str, tmp_dir: str) -> dict:
         torch.cuda.synchronize()
         rec["eval_launches"] = counts()
         evals_fwd = -(-EVAL_SCENES // 2)
-        expect(rec["eval_launches"], (evals_fwd * n_eval, 0, 0), "config5 world-2 eval launches")
+        expect(rec["eval_launches"], want_launches(evals_fwd * n_eval),
+               "config5 world-2 eval launches")
         with Loader(cfg, "val", train=False, rank=world.rank, world=2) as loader:
             vb = TL.to_device(next(loader), device)
         bits = DP.make_parallel_eval_step(cfg, world)(state, vb)["point_mask_bits"].cpu().numpy()
@@ -2693,7 +2937,7 @@ def trace_summary(path: str) -> dict:
             "kernel_launches": sum(n for _, n in by_name.values()),
             "kernel_ms": sum(us for us, _ in by_name.values()) / 1e3,
             "top_kernels": [[name[:100], round(us / 1e3, 3), n] for name, (us, n) in top],
-            "sparse_conv_kernels": {k: sum(n for name, (_, n) in by_name.items() if k in name)
+            "hand_kernels": {k: sum(n for name, (_, n) in by_name.items() if k in name)
                                     for k in TRACE_KERNELS}}
 
 
@@ -2776,8 +3020,9 @@ def phase_tools(out_dir: str, tmp_dir: str, smi: str, c2: dict) -> dict:
                                       "--profile", "--log-file", log_path],
                      f"config2 train.main --profile, {PROFILE_STEPS} steps")
     wall = time.perf_counter() - t0
-    expect(got, (PROFILE_STEPS * n_train, PROFILE_STEPS * (n_train - 1),
-                 PROFILE_STEPS * n_train), "config2 train.main --profile launches")
+    expect(got, want_launches(PROFILE_STEPS * n_train, PROFILE_STEPS * (n_train - 1),
+                              PROFILE_STEPS * n_train, PROFILE_STEPS * cfg.data.batch_size),
+           "config2 train.main --profile launches")
     rep["launches"][f"config2 train.main --profile ({PROFILE_STEPS} steps)"] = got
     train_losses(log_path, PROFILE_STEPS, "config2 train.main --profile")
     traces = [r["trace"] for r in jsonl(log_path) if r["kind"] == "profile"]
@@ -2785,14 +3030,14 @@ def phase_tools(out_dir: str, tmp_dir: str, smi: str, c2: dict) -> dict:
             not os.path.isfile(traces[0]):
         raise AssertionError(f"train.main --profile: trace lines {traces}")
     summ = trace_summary(traces[0])
-    missing = [k for k, n in summ["sparse_conv_kernels"].items() if not n]
+    missing = [k for k, n in summ["hand_kernels"].items() if not n]
     if missing:
         raise AssertionError(f"the --profile trace names no {missing}")
     rep["profile"] = {"train_main_s": wall, **summ}
     log(f"  trace {os.path.basename(traces[0])}: {summ['bytes']} bytes, {summ['events']} "
         f"events, {summ['kernel_launches']} kernels of {summ['kernel_ms']:.1f} ms card time "
-        f"over {PROFILE_STEPS} steps (train.main {wall:.1f} s with the export); sparse-conv "
-        f"kernels by name {json.dumps(summ['sparse_conv_kernels'])}")
+        f"over {PROFILE_STEPS} steps (train.main {wall:.1f} s with the export); hand "
+        f"kernels by name {json.dumps(summ['hand_kernels'])}")
     log("  top kernels of the trace [name, ms, launches]: " + json.dumps(summ["top_kernels"]))
     shutil.rmtree(ckp, ignore_errors=True)
 
@@ -2868,7 +3113,7 @@ def phase_tools(out_dir: str, tmp_dir: str, smi: str, c2: dict) -> dict:
         _, got = run_cli(CC.main, ["--config", CONFIG2, *sum((["--set", x] for x in base), []),
                                    "--to-dense", to, "--out-dir", out, "--device", DEVICE],
                          f"convert_checkpoint --to-dense {to}")
-        expect(got, (0, 0, 0), "convert_checkpoint launches")
+        expect(got, want_launches(0), "convert_checkpoint launches")
         tsets = base + CC.form_overrides(to_s0) + [f"train.checkpoint_dir={out}"]
         tcfg = load_config(CONFIG2, infer.parse_overrides(tsets))
         conv = CK.restore(CK.make_manager(out), TL.init_state(tcfg, DEVICE))
@@ -2903,7 +3148,8 @@ def phase_tools(out_dir: str, tmp_dir: str, smi: str, c2: dict) -> dict:
                                           "--resume", "--device", DEVICE,
                                           "--log-file", log_path],
                          f"config2 converted to {to}: train.main --resume, one step")
-        expect(got, (n_f, n_t - 1, n_t), f"config2 converted to {to} resumed step launches")
+        expect(got, want_launches(n_f, n_t - 1, n_t, tcfg.data.batch_size),
+               f"config2 converted to {to} resumed step launches")
         lines = jsonl(log_path)
         if [r["step"] for r in lines if r["kind"] == "resume"] != [src.step]:
             raise AssertionError(f"converted to {to}: resume lines {lines}")
@@ -2950,6 +3196,26 @@ def kernel_entry(name, source, replaces, launches, recs_all, main_path, library,
             "config1": totals(config1), "pool_dropout": totals(pool)}
 
 
+def index_entry(name, replaces, launches, recs_all, main_path, config1, paths, col) -> dict:
+    """One indexing backward of the ``kernels`` line, as ``kernel_entry``'s
+    (config 2 at the top level, a record a scene; config 1 under
+    ``config1``), with its map's ms and whether every comparison with the
+    plain version was bit-equal."""
+    top = totals(main_path)
+    top["max_abs_err"] = max(r["max_abs_err"] for r in recs_all + main_path + config1)
+    return {"name": name, "route": "cuda",
+            "source": "sparse_rcnn_tpu_torch/ops/csrc/index_grad.cu", "replaces": replaces,
+            "launches": launches, **top, "map_ms": sum(r["map_ms"] for r in main_path),
+            "bit_equal": all(r["bit_equal"] for r in recs_all + main_path + config1),
+            "library": "the plain version's own index_put_(accumulate=True)",
+            "per": "one config-2 train step (2 scenes), main-path inputs; launches: "
+                   f"config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one config-1 train "
+                   "step (the crop's rows f32 at config 1, bf16 at config 2; the mask read "
+                   "bf16 at both)",
+            "config1": {**totals(config1), "map_ms": sum(r["map_ms"] for r in config1)},
+            "launches_by_path": {k: v[col] for k, v in paths.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of sparse_rcnn_tpu_torch.")
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "chiprun_out", "chip_smoke"),
@@ -2972,6 +3238,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     build()
     recs = phase_kernel()
     bwd_recs = phase_backward_kernels()
+    index_recs = phase_index_grad()
     launches, split, main_path = phase_slice(args.out_dir, os.path.join(tmp_dir, "none"))
     dead = next(r for r in recs if (r["conv"], r["dtype"]) == ("all_dead", "float32"))
     enc = next(r for r in main_path if r["conv"] == "enc0.conv1")
@@ -2992,8 +3259,8 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
 
     src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
     records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
-    fwd, dgrad, wgrad = c2["launches_train"]
-    paths = {"config1 infer.main (3 scenes)": (launches, 0, 0),
+    fwd, dgrad, wgrad = c2["launches_train"][:3]
+    paths = {"config1 infer.main (3 scenes)": want_launches(launches),
              f"config1 train.main ({TRAIN_STEPS} steps)": train["launches"],
              "config2 infer.main (1 batch)": c2["launches_infer"],
              f"config2 train.main ({C2_TRAIN_STEPS} steps)": c2["launches_train"],
@@ -3030,11 +3297,19 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
             "train step (10 wgrads, f32); pool_dropout: one pooled train step",
             train["wgrad_main_path"], pool["wgrad"]),
             launches_by_path={k: v[2] for k, v in paths.items()}),
+        index_entry("roi_crop_grad", "sparse_rcnn_tpu/ops/roi.py:76", c2["launches_train"][3],
+                    [r for r in index_recs if r["kernel"] == "roi_crop_grad"],
+                    c2["roi_grad_main_path"], train["roi_grad_main_path"], paths, 3),
+        index_entry("mask_read_grad", "sparse_rcnn_tpu/models/heads.py:99",
+                    c2["launches_train"][4],
+                    [r for r in index_recs if r["kernel"] == "mask_read_grad"],
+                    c2["mask_grad_main_path"], train["mask_grad_main_path"], paths, 4),
     ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "convs_random": recs, "convs_main_path": main_path,
               "dead_tile_vs_main_path": dead_vs_main,
-              "backward_random": bwd_recs, "slice_ms_per_scene": split,
+              "backward_random": bwd_recs, "index_grad_edges": index_recs,
+              "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
               "train": train, "golden_train": golden_train, "config2": c2,
               "eval_checkpoints": p9, "data_layer": p10, "data_parallel": p11, "tools": p12}
@@ -3048,7 +3323,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     print(json.dumps({"data_parallel": p11["summary"]}))
     print(json.dumps({"tools": {"card": smi, "phase_s": p12["phase_s"],
                                 "profile": {k: p12["profile"][k] for k in (
-        "bytes", "events", "kernel_launches", "kernel_ms", "sparse_conv_kernels")},
+        "bytes", "events", "kernel_launches", "kernel_ms", "hand_kernels")},
         "flops": {k: p12["flops"][k] for k in ("useful_forward_flops_per_batch",
                                                 "useful_tflops_per_s_at_eval_step")},
         "conversion": {k: {m: v for m, v in r.items() if m != "resumed_step"}

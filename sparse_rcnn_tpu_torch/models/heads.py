@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..config import RoIConfig
+from ..ops import index_grad
 from .layers import MLP
 
 
@@ -75,10 +76,10 @@ def sample_mask_at_positions(mask_logits: torch.Tensor, boxes: torch.Tensor,
     [P, N], inside bool[P, N]); nearest-cell sampling in the box-normalised
     grid. The logits are read in bf16, as the JAX package reads them (its
     row gather casts to bf16 even in f32 configs), then returned in the
-    mask logits' dtype.
+    mask logits' dtype. The read is :func:`.index_grad.mask_read`, whose
+    backward on the card is the ``mask_read_grad`` kernel.
     """
     g = mask_logits.shape[-1]
-    p = mask_logits.shape[0]
     cells, inside = [], None
     for a in range(3):
         lo = boxes[:, a:a + 1]
@@ -89,10 +90,9 @@ def sample_mask_at_positions(mask_logits: torch.Tensor, boxes: torch.Tensor,
         # clamp before the int cast: XLA saturates an out-of-range
         # float→int32 conversion, C++ leaves it undefined
         cell = torch.clamp(rel * g, -1.0, float(g)).to(torch.int32)
-        cells.append(cell.clamp(0, g - 1).to(torch.int64))
+        cells.append(cell.clamp(0, g - 1))
     cx, cy, cz = cells
-    prow = torch.arange(p, device=mask_logits.device)[:, None]
-    logits = mask_logits.to(torch.bfloat16)[prow, cx, cy, cz]
+    logits = index_grad.mask_read(mask_logits.to(torch.bfloat16), (cx * g + cy) * g + cz)
     return logits.to(mask_logits.dtype), inside
 
 

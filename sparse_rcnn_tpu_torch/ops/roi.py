@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import coords as coord_ops
+from . import index_grad
 from .consts import device_tensor
 
 # corner c of a unit cell: (c >> 2 & 1, c >> 1 & 1, c & 1)
@@ -42,9 +43,10 @@ def sample_trilinear(table_coords, table_nvalid, feats, positions,
     table_coords int32[M, 3] sorted site set at ``stride``; feats [M, C];
     positions float[..., 3] in stride-1 voxel units → float[..., C], zero
     where no voxels exist. A voxel (i,j,k) at stride s covers [i*s, (i+1)*s)
-    and its feature sits at the cell centre (i + 0.5) * s.
+    and its feature sits at the cell centre (i + 0.5) * s. The sum over
+    the 8 corners is :func:`.index_grad.corner_gather`, whose backward on
+    the card is the ``roi_crop_grad`` kernel.
     """
-    m = table_coords.shape[0]
     table = _table(table_coords, table_nvalid)
     q = positions / stride - 0.5
     base = torch.floor(q).to(torch.int32)
@@ -55,9 +57,7 @@ def sample_trilinear(table_coords, table_nvalid, feats, positions,
     cc = base[None] + offs
     w = torch.prod(torch.where(offs > 0, frac[None], 1.0 - frac[None]), dim=-1)
     idx = coord_ops.table_lookup_bulk(table, coord_ops.pack_coords(cc))
-    safe = idx.clamp(0, m - 1).to(torch.int64)
-    val = feats[safe] * (idx >= 0)[..., None].to(feats.dtype)
-    return torch.sum(val * w[..., None].to(feats.dtype), dim=0)
+    return index_grad.corner_gather(feats, idx, w)
 
 
 def sample_nearest(table_coords, table_nvalid, values, positions,

@@ -92,14 +92,15 @@ def sparse_conv_wgrad_reference(feats: torch.Tensor, t_idx: torch.Tensor,
     return out
 
 
-def build_kernel(source: Path = _SRC) -> tuple:
-    """Compile ``source`` (by default ``csrc/sparse_conv.cu``) for sm_90a
-    unless a library built from the same text exists. Returns (path of the
-    .so, nvcc's messages). Processes that build at once (the ranks of a
-    data-parallel run) take turns on a file lock: the first compiles, the
-    others then find its library; a failed build raises in each of them."""
+def build_kernel(source: Path = _SRC, name: str = "sparse_conv") -> tuple:
+    """Compile ``source`` (by default ``csrc/sparse_conv.cu``) for sm_90a into
+    ``_build/lib<name>_<hash of the text>.so`` unless a library built from
+    the same text exists. Returns (path of the .so, nvcc's messages).
+    Processes that build at once (the ranks of a data-parallel run) take
+    turns on a file lock: the first compiles, the others then find its
+    library; a failed build raises in each of them."""
     src = Path(source).read_bytes()
-    so = _BUILD_DIR / f"libsparse_conv_{hashlib.sha1(src).hexdigest()[:12]}.so"
+    so = _BUILD_DIR / f"lib{name}_{hashlib.sha1(src).hexdigest()[:12]}.so"
     if so.exists():
         return so, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -124,27 +125,30 @@ def _nvcc(source: Path, so: Path) -> tuple:
     return so, res.stdout + res.stderr
 
 
-class _Library:
-    """The built CUDA library, loaded once, with its two entry points typed."""
+class Library:
+    """A CUDA library built by :func:`build_kernel` from ``source`` at first
+    use and loaded once, its entry points typed from ``argtypes`` (name →
+    ctypes argument types; each returns a CUDA error code)."""
 
-    def __init__(self):
+    def __init__(self, source: Path, name: str, argtypes: dict):
+        self.source, self.name, self.argtypes = source, name, argtypes
         self._lib = None
 
     def get(self):
         if self._lib is None:
-            so, _ = build_kernel()
+            so, _ = build_kernel(self.source, self.name)
             lib = ctypes.CDLL(str(so))
-            lib.sparse_conv_forward.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                                                + [ctypes.c_void_p])
-            lib.sparse_conv_forward.restype = ctypes.c_int
-            lib.sparse_conv_wgrad.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
-                                              + [ctypes.c_void_p])
-            lib.sparse_conv_wgrad.restype = ctypes.c_int
+            for fn, types in self.argtypes.items():
+                getattr(lib, fn).argtypes = types
+                getattr(lib, fn).restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
 
-_LIB = _Library()
+_LIB = Library(_SRC, "sparse_conv", {
+    "sparse_conv_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "sparse_conv_wgrad": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+})
 
 
 class SparseConvKernel:

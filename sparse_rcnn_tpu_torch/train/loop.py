@@ -407,13 +407,16 @@ def deterministic_on_cpu(device):
     """Run the block under ``torch.use_deterministic_algorithms(True)`` when
     ``device`` is the CPU, and restore the previous setting after it.
 
-    On the CPU, the backward of an advanced-indexing read (``feats[idx]`` in
-    ``ops/roi.py::sample_trilinear``) is an ``index_put_`` accumulate that
-    adds repeated rows with parallel atomics, so a gradient changes in its
-    last bits from run to run; the deterministic mode sorts the indices
-    first. On the card nothing is switched: CUDA's ``index_put_`` already
-    sorts, and the mode would make cuBLAS refuse to run without a workspace
-    setting the caller did not ask for.
+    On the CPU, the backward of the RoI crop's corner gather and of the
+    bf16 mask read (``ops/index_grad.py``, plain versions) is an
+    ``index_put_`` accumulate that adds repeated rows with parallel
+    atomics, so a gradient changes in its last bits from run to run; the
+    deterministic mode sorts the indices first. On the card nothing is
+    switched: those two backwards run the ``roi_crop_grad`` and
+    ``mask_read_grad`` kernels, which add each row's entries in a fixed
+    order with no atomics, so no ``index_put_`` runs on these paths; and the
+    mode would make cuBLAS refuse to run without a workspace setting the
+    caller did not ask for.
     """
     if torch.device(device).type != "cpu":
         yield

@@ -30,7 +30,8 @@ need = {pkg.__name__ + "." + m for m in (
     "train.checkpoint", "train.evaluate", "data.ply", "data.datasets", "native",
     "ops.pooling", "parallel", "parallel.context", "parallel.data_parallel",
     "utils.profiling", "utils.flops", "tools", "tools.size_capacities",
-    "tools.preprocess_scannet", "tools.convert_checkpoint", "ops.consts")}
+    "tools.preprocess_scannet", "tools.convert_checkpoint", "ops.consts",
+    "ops.index_grad")}
 from sparse_rcnn_tpu_torch.data.datasets import S3DISDataset, ScanNetDataset, SemanticKITTIDataset
 from sparse_rcnn_tpu_torch.data.pipeline import Loader, device_batches, host_voxelize_scene
 from sparse_rcnn_tpu_torch.data.ply import read_ply, write_ply

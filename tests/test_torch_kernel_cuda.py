@@ -1,5 +1,6 @@
-"""The port's CUDA sparse-conv kernels (forward, dgrad, wgrad) against their
-plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card: the
+sparse conv's (forward, dgrad, wgrad) and the gather-form backwards of the
+RoI crop and the bf16 mask read (``roi_crop_grad``, ``mask_read_grad``).
 
 This file imports neither jax nor the JAX package, so that it also runs on a
 machine that has a card and no JAX. ``tests/conftest.py`` imports jax, so
@@ -9,13 +10,16 @@ run it there without the conftest files:
 
 Without a card every test here skips. Tolerances: f32 1e-5 (TF32 off; the
 kernel sums taps in the plain version's order); bf16 1e-2 (both sum in f32
-and round once to bf16: at most one bf16 ulp, 2^-8 relative).
+and round once to bf16: at most one bf16 ulp, 2^-8 relative). The two
+indexing backwards add each row's entries in the order of CUDA's
+``index_put_``, their plain version, and are held to it bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from sparse_rcnn_tpu_torch.ops import index_grad as IG
 from sparse_rcnn_tpu_torch.ops import sparse_conv as SC
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
@@ -262,3 +266,138 @@ def test_cuda_wgrad_kernel_matches_reference(cuda_device, case):
     assert d_w.dtype == torch.float32 and d_w.shape == (k, cin, cout)
     assert torch.equal(d_w, d_w2)                 # no atomics: bit-identical
     _wgrad_close(d_w, SC.sparse_conv_wgrad_reference(f, ti, g))
+
+
+# (M, C, P, D, dtype, case): the RoI crop's backward over P boxes of D^3
+# samples: about 40 % of the corners dead; every corner dead; every live
+# corner into row 0 (today's row-0 run); M below one block with P = 1; C of
+# 3 (4 lanes a row), 16 (two rows a warp), 32 and 40 (two channel passes)
+ROI_GRAD_CASES = [
+    (300, 16, 4, 3, "float32", "random"),
+    (300, 16, 4, 3, "bfloat16", "random"),
+    (300, 32, 4, 3, "float32", "random"),
+    (300, 32, 4, 3, "bfloat16", "random"),
+    (300, 32, 4, 3, "bfloat16", "all_dead"),
+    (300, 16, 4, 3, "float32", "one_row"),
+    (300, 32, 4, 3, "bfloat16", "one_row"),
+    (5, 16, 1, 3, "float32", "random"),
+    (300, 3, 2, 3, "float32", "random"),
+    (300, 40, 2, 3, "float32", "random"),
+]
+
+
+def roi_grad_inputs(device, m, c, p, d, dt, case):
+    rng = np.random.default_rng(m + c + p)
+    s = p * d ** 3
+    idx = rng.integers(0, m, (8, s)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.4] = -1
+    if case == "all_dead":
+        idx[:] = -1
+    elif case == "one_row":
+        idx[idx >= 0] = 0
+    g = torch.from_numpy(rng.normal(size=(s, c)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0, 1, (8, s)).astype(np.float32))
+    return (g.to(device, TORCH_DT[dt]), w.to(device, TORCH_DT[dt]),
+            torch.from_numpy(idx).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROI_GRAD_CASES, ids=lambda c: "M{}_C{}_P{}_D{}_{}_{}".format(*c))
+def test_cuda_roi_crop_grad_bit_equal_to_index_put(cuda_device, case):
+    m = case[0]
+    g, w, idx = roi_grad_inputs(cuda_device, *case)
+    rmap = IG.roi_crop_map(idx, m)
+    before = IG.ROI_CROP_GRAD.launches
+    got = IG.roi_crop_grad(g, w, idx, rmap, m)
+    again = IG.roi_crop_grad(g, w, idx, rmap, m)
+    want = IG.roi_crop_grad_reference(g, w, idx, m)
+    torch.cuda.synchronize()
+    assert IG.ROI_CROP_GRAD.launches == before + 2
+    assert got.dtype == g.dtype and got.shape == (m, g.shape[1])
+    assert torch.equal(got, again)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+# (P, G, N, case): the mask read's backward; "border" sends 70 % of a
+# proposal's points to one cell (the border cells of a box that holds
+# few points), "one_cell" every point of proposal 0 to cell 0 (a run of N
+# entries, 156 lane passes at N 5000), "tail" runs shorter than a warp
+MASK_GRAD_CASES = [
+    (4, 6, 3000, "random"),
+    (5, 6, 4000, "border"),
+    (3, 6, 5000, "one_cell"),
+    (1, 14, 2000, "random"),
+    (2, 4, 37, "tail"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MASK_GRAD_CASES, ids=lambda c: "P{}_G{}_N{}_{}".format(*c))
+def test_cuda_mask_read_grad_bit_equal_to_index_put(cuda_device, case):
+    p, grid, n, kind = case
+    cells = grid ** 3
+    rng = np.random.default_rng(p + n)
+    cell = rng.integers(0, cells, (p, n)).astype(np.int32)
+    if kind == "border":
+        cell[rng.random((p, n)) < 0.7] = cells - 1
+    elif kind == "one_cell":
+        cell[0] = 0
+    cell = torch.from_numpy(cell).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(p, n)).astype(np.float32)).to(cuda_device,
+                                                                        torch.bfloat16)
+    rmap = IG.mask_read_map(cell, cells)
+    before = IG.MASK_READ_GRAD.launches
+    got = IG.mask_read_grad(g, cell, rmap, cells)
+    again = IG.mask_read_grad(g, cell, rmap, cells)
+    want = IG.mask_read_grad_reference(g, cell, cells)
+    torch.cuda.synchronize()
+    assert IG.MASK_READ_GRAD.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == (p, cells)
+    assert torch.equal(got, again)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_index_reads_backward_through_the_kernels(cuda_device, dt):
+    """The autograd Functions on the card: one launch each, gradients equal
+    to autograd's own backward of the composite reads."""
+    g, w, idx = roi_grad_inputs(cuda_device, 300, 16, 4, 3, dt, "random")
+    feats = torch.from_numpy(np.random.default_rng(5).normal(size=(300, 16)).astype(
+        np.float32)).to(cuda_device, TORCH_DT[dt])
+    w = w.float().reshape(8, 4, 27)
+    idx = idx.reshape(8, 4, 27)
+    grads = []
+    for composite in (False, True):
+        f = feats.clone().requires_grad_(True)
+        before = IG.ROI_CROP_GRAD.launches
+        if composite:
+            live = (idx >= 0)[..., None].to(f.dtype)
+            out = torch.sum(f[idx.clamp(0, 299).long()] * live * w[..., None].to(f.dtype), 0)
+        else:
+            out = IG.corner_gather(f, idx, w)
+        out.backward(g.reshape(4, 27, 16))
+        torch.cuda.synchronize()
+        assert IG.ROI_CROP_GRAD.launches == before + (0 if composite else 1)
+        grads.append((out.detach(), f.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+
+    rng = np.random.default_rng(6)
+    cell = torch.from_numpy(rng.integers(0, 216, (3, 500)).astype(np.int32)).to(cuda_device)
+    mask = torch.from_numpy(rng.normal(size=(3, 6, 6, 6)).astype(np.float32)).to(
+        cuda_device, TORCH_DT[dt])
+    ct = torch.from_numpy(rng.normal(size=(3, 500)).astype(np.float32)).to(cuda_device)
+    grads = []
+    for composite in (False, True):
+        m = mask.clone().requires_grad_(True)
+        before = IG.MASK_READ_GRAD.launches
+        bf = m.to(torch.bfloat16)
+        if composite:
+            out = bf.reshape(3, -1)[torch.arange(3, device=cuda_device)[:, None], cell.long()]
+        else:
+            out = IG.mask_read(bf, cell)
+        out.to(m.dtype).backward(ct.to(m.dtype))
+        torch.cuda.synchronize()
+        assert IG.MASK_READ_GRAD.launches == before + (0 if composite else 1)
+        grads.append((out.detach(), m.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
