@@ -14,8 +14,8 @@ split into stages with a synchronise after each:
   heads (RPN, NMS, RoI, masks, devoxelize);
 - the training step on batches of the train stream: prepare (voxelize,
   rulebooks, GT), forward (the model in training mode and the losses),
-  backward, optimizer (gradient norm, clip, AdamW), as ``train_step`` runs
-  them.
+  backward, optimizer (``TL.optimizer_step``: gradient norm, then clip,
+  AdamW and EMA in one pass), as ``train_step`` runs them.
 
 First without the profiler (host clock), then under ``torch.profiler`` with
 CPU and CUDA activities. From the trace, per stage and per step: wall ms,
@@ -92,8 +92,8 @@ def eval_step(cfg, model, batch) -> dict:
 
 
 def train_step(cfg, state, batch) -> dict:
-    """One training step by stage, as ``TL.train_step`` runs it (without
-    EMA); updates ``state`` in place and returns the host ms of each stage."""
+    """One training step by stage, as ``TL.train_step`` runs it; updates
+    ``state`` in place and returns the host ms of each stage."""
     cfg = TL.train_cfg(cfg)
     stage = Stages()
     model = state.model
@@ -106,9 +106,8 @@ def train_step(cfg, state, batch) -> dict:
     with stage("backward"):
         grads = torch.autograd.grad(total, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    with stage("optimizer"), torch.no_grad():
-        TL.global_norm(grads)
-        TL.Optimizer(cfg).apply(state.opt_state, params, grads)
+    with stage("optimizer"):
+        TL.optimizer_step(cfg, state, params, grads)
     state.step += 1
     return stage.total()
 

@@ -8,7 +8,8 @@ nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the CUDA libraries from ``sparse_rcnn_tpu_torch/ops/csrc`` (the
-   sparse conv's and the indexing backwards', one ``nvcc`` each, together);
+   sparse conv's, the indexing backwards' and the optimizer's, one ``nvcc``
+   each, together);
 3. the forward kernel against its plain version on random inputs at every
    conv shape of a config-1 forward (f32 and bf16), a ragged M, a
    config-2-sized shape and the edge cases of its dead-tile skip and copy
@@ -25,7 +26,16 @@ nonzero:
    live corner, C 16 and 32, f32 and bf16; ``MASK_GRAD_EDGES``: one
    proposal, a box that holds no point, a proposal all in one cell, runs
    shorter than a warp's pass), with kernel, map, plain, library and bound
-   times;
+   times; then the optimizer's kernels (``global_sumsq_partial`` +
+   ``global_sumsq_finish``, ``optim_apply``, ``ops/optim.py``) against their
+   plain versions (the fixed-order norm in elementwise ops, the foreach
+   chain), bit-equal and bit-identical across two launches, on edge cases
+   (``benchmarks/optim_cases.py``: one entry, a chunk's edges, sizes not a
+   multiple of 4, tensors at odd offsets, channels-last gradients, the clip
+   triggered and not, a zero and a NaN gradient, count 1 and 10^4, SGD, EMA
+   on and off, the EMA alone, a list of two launches, config 2's 165
+   shapes), with kernel, plain, library and bound times at config 1's and
+   config 2's shapes;
 4. the config-1 inference slice on the card: ``infer.main`` on 3 val scenes
    (the forward count must rise by 10 per forward); tie-breaking of sort
    and argmax on the card; then the same weights and scenes on the CPU,
@@ -46,6 +56,10 @@ nonzero:
    inputs the main path gave them, the indexing backwards too (bit-equal to
    ``index_put_``), and the reads' forward and backward under
    ``torch.cuda.set_sync_debug_mode("error")`` (the maps make no host sync);
+   one whole ``train_step`` under ``set_sync_debug_mode("error")`` after a
+   count of its syncs under ``"warn"`` (none), and the two optimizer
+   kernels once a step (``global_norm``: 2 launches, partials and finish;
+   ``optim_apply``: 1) on every train path, never in an eval;
 7. the committed weights reproduce JAX's 3-step train trajectory
    ``tests/fixtures/golden_config1_train.npz`` on the card;
 8. config 2 (``configs/config2_scannet_2cm.yaml``, ``data.dataset=synthetic``
@@ -158,8 +172,9 @@ nonzero:
    under ``config1``, config1_pool_dropout's under ``pool_dropout``;
    launches of every path under ``launches_by_path``, phase 11's ranks and
    phase 12's paths too; ``roi_crop_grad`` and ``mask_read_grad`` with
-   their maps' ms and whether every comparison was bit-equal), then as the last line ``{"ok": true, "device":
-   {...}}``.
+   their maps' ms and whether every comparison was bit-equal; ``global_norm``
+   and ``optim_apply`` likewise), then as the last line ``{"ok": true,
+   "device": {...}}``.
 
 TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
 algorithms, so every f32 comparison holds f32 against f32. Detailed
@@ -192,6 +207,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import sparse_rcnn_tpu_torch.train.__main__ as train_cli
 from benchmarks import eval_step_syncs as SYNCS
+from benchmarks import optim_cases as OC
 from benchmarks import profile_torch_slice as PROF
 from sparse_rcnn_tpu_torch import eval as eval_cli
 from sparse_rcnn_tpu_torch import infer
@@ -208,6 +224,7 @@ from sparse_rcnn_tpu_torch.models import unet as U
 from sparse_rcnn_tpu_torch.models.transfer import from_flax, unflatten_variables
 from sparse_rcnn_tpu_torch.models.unet import scatter_to_grid
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
+from sparse_rcnn_tpu_torch.ops import optim as OPT
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
 from sparse_rcnn_tpu_torch.ops import voxelize as V
 from sparse_rcnn_tpu_torch.parallel import context as DPC
@@ -303,7 +320,8 @@ DP_TOL = {"float32": {"loss_rtol": 1e-5, "params_atol": 1e-5, "grads_rel": 2e-2}
 PROFILE_STEPS = 2
 TRACE_KERNELS = ("sparse_conv_fwd_kernel", "sparse_conv_wgrad_partial_kernel",
                  "sparse_conv_wgrad_reduce_kernel", "roi_crop_grad_kernel",
-                 "mask_read_grad_kernel")
+                 "mask_read_grad_kernel", "global_sumsq_partial_kernel",
+                 "global_sumsq_finish_kernel", "optim_apply_kernel")
 SIZE_SCENES = 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s and
@@ -353,15 +371,22 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 WGRAD_RTOL = 1e-4
 TRAIN_STEPS = 5
 SPIN_CYCLES = 2_000_000         # about 1 ms of the card's clock
+OPTIM_SPIN_CYCLES = 60_000_000  # about 30 ms: the optimizer's timings (optim_times)
 # ``time_ms`` arguments of the kernel, plain and library timings; fewer
 # (QUICK_REPS) on config 2's main path, whose convs move 16x the rows
 REPS = {"kernel": dict(reps=30, inner=10), "plain": dict(reps=20, inner=1),
         "library": dict(reps=20, inner=10)}
 QUICK_REPS = {"kernel": dict(reps=10, inner=5), "plain": dict(reps=5, inner=1),
               "library": dict(reps=5, inner=2)}
+# launches of global_norm (partials and finish) and optim_apply in one train
+# step: every config's parameter list fits one launch (OPT.MAX_TENSORS)
+OPT_PER_STEP = (2, 1)
 # forward, dgrad (the stem's input needs none), wgrad, roi_crop_grad and
-# mask_read_grad (once a scene; config 1 trains on batches of 1)
-PER_STEP = (10, 9, 10, 1, 1)
+# mask_read_grad (once a scene; config 1 trains on batches of 1), then the
+# optimizer's; PER_STEP[:5] is loss_and_grads' alone
+PER_STEP = (10, 9, 10, 1, 1, *OPT_PER_STEP)
+COUNT_NAMES = ("forward, dgrad, wgrad, roi_crop_grad, mask_read_grad, global_norm, "
+               "optim_apply")
 # card against CPU, one config-1 step, per parameter relative to the
 # largest entry of its gradient. Outside the RoI head: with the mask weight
 # 0, f32 sums of up to 32768*27 products in other orders through ~20
@@ -388,13 +413,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3, inner: int = 10) -> float:
+def time_ms(fn, reps: int = 30, warmup: int = 3, inner: int = 10,
+            spin: int = None) -> float:
     """Median over ``reps`` of the mean of ``inner`` back-to-back warm runs
-    between two CUDA events. Before each, the card spins for about a
-    millisecond (``torch.cuda._sleep``), so that the host has queued the
-    runs before the start event fires: a kernel of a few microseconds is
-    then timed on the card, not at the rate the host launches it, and the
-    events' own cost is spread over ``inner`` runs."""
+    between two CUDA events. Before each, the card spins for ``spin``
+    cycles (by default about a millisecond, ``torch.cuda._sleep``), so that
+    the host has queued the runs before the start event fires: a kernel of
+    a few microseconds is then timed on the card, not at the rate the host
+    launches it, and the events' own cost is spread over ``inner`` runs.
+    A call that takes the host longer than the card needs a longer spin."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -402,7 +429,7 @@ def time_ms(fn, reps: int = 30, warmup: int = 3, inner: int = 10) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin or SPIN_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -436,12 +463,14 @@ def card_info() -> str:
 
 
 def build() -> None:
-    """Both CUDA libraries, one ``nvcc`` each, started together."""
+    """The three CUDA libraries, one ``nvcc`` each, started together."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         built = list(pool.map(lambda a: sc.build_kernel(*a),
-                              [(sc._SRC, "sparse_conv"), (IG._SRC, "index_grad")]))
-    for k in (sc.KERNEL, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_GRAD):
+                              [(sc._SRC, "sparse_conv"), (IG._SRC, "index_grad"),
+                               (OPT._SRC, "optim", OPT._LIB.flags)]))
+    for k in (sc.KERNEL, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_GRAD, OPT.GLOBAL_NORM,
+              OPT.OPTIM_APPLY):
         k.load()
     log(f"[phase 2] built {', '.join(os.path.relpath(so, ROOT) for so, _ in built)} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -768,8 +797,8 @@ def phase_slice(out_dir: str, no_ckpt: str) -> tuple:
                 "--device", DEVICE])
     torch.cuda.synchronize()
     launches = sc.KERNEL.launches
-    if counts()[1:] != (0, 0, 0, 0):
-        raise AssertionError(f"inference launched backward kernels: {counts()}")
+    if any(counts()[1:]):
+        raise AssertionError(f"inference launched backward or optimizer kernels: {counts()}")
     forwards = -(-n_scenes // cfg.data.batch_size)
     log(f"  sparse_conv launches in infer.main: {launches} "
         f"({forwards} forwards, 10 expected per forward)")
@@ -1142,14 +1171,177 @@ def main_path_index_grad(rg, mg, reps=None) -> tuple:
 
 
 # --------------------------------------------------------------------------
+# phase 3, the optimizer: global_sumsq_* and optim_apply
+
+
+def max_err(got, want) -> float:
+    """Largest |got - want| over tensors or lists of them, NaN where both are
+    NaN counted as 0 (and where only one is, as inf)."""
+    if got is None:
+        return 0.0
+    if isinstance(got, list):
+        return max((max_err(a, b) for a, b in zip(got, want)), default=0.0)
+    both = got.isnan() & want.isnan()
+    d = (got.double() - want.double()).abs().masked_fill(both, 0.0).nan_to_num(nan=float("inf"))
+    return d.max().item() if d.numel() else 0.0
+
+
+def optim_bytes(numels, kind: str, ema: bool) -> dict:
+    """Bytes each once of the norm (g read) and of the apply pass (AdamW: g,
+    p, μ, ν read, p, μ, ν written; SGD: g, p, μ and p, μ; the EMA: e read
+    and written, p read where no update reads it)."""
+    n = sum(numels)
+    per = {"adamw": 28, "sgd": 20, "ema": 4}[kind] + (8 if ema else 0)
+    return {"norm": 4 * n, "apply": per * n}
+
+
+def optim_record(name, shapes, kind, grads, count, ema, seed, timed=False) -> dict:
+    """The kernels against their plain versions on one case of
+    ``OC.OPTIM_CASES``: the norm and every list after one call bit-equal
+    (NaN equal to NaN) and bit-identical across two launches; ``timed``,
+    kernel, plain, library and bound times too."""
+    numels = [int(np.prod(s)) for s in shapes]
+    lists = OC.optim_case(DEVICE, shapes, grads, seed, layout=OC.layout(name))
+    got, again = (OC.run_optim(lists, kind, count, ema, kernel=True) for _ in range(2))
+    want = OC.run_optim(lists, kind, count, ema, kernel=False)
+    torch.cuda.synchronize()
+    nbytes = optim_bytes(numels, kind, ema)
+    rec = {"case": name, "kind": kind, "grads": grads, "count": count, "ema": ema,
+           "tensors": len(numels), "entries": sum(numels),
+           "launches_per_call": len(OPT.chunk_plan(numels)[1]),
+           "norm": None if got[0] is None else float(got[0]),
+           "channels_last_grads": sum(OPT.grad_layout(g) != (0, 0) for g in lists["grads"]),
+           "bit_equal": all(OC.same_bits(g, w) for g, w in zip(got, want)),
+           "bit_identical": all(OC.same_bits(g, a) for g, a in zip(got, again)),
+           "max_abs_err": max(max_err(g, w) for g, w in zip(got, want)),
+           "bytes": nbytes}
+    rec["ok"] = rec["bit_equal"] and rec["bit_identical"]
+    if timed:
+        rec.update(optim_times(lists, kind, count, ema, nbytes))
+    log(f"  optimizer {name:12s} {kind:5s} {len(numels):4d} tensors {sum(numels):9d} entries, "
+        f"grads {grads}, count {count}, EMA {ema}: norm {rec['norm']}, max_abs_err "
+        f"{rec['max_abs_err']:.3e} bit_equal={rec['bit_equal']} "
+        f"bit_identical={rec['bit_identical']} {'ok' if rec['ok'] else 'MISMATCH'}"
+        + ("" if not timed else " | " + ", ".join(
+            f"{k}={rec[k]:.4f}" for k in rec if k.endswith("_ms"))))
+    return rec
+
+
+def optim_times(lists, kind, count, ema, nbytes) -> dict:
+    """Card ms of the norm and the apply pass (kernels, plain versions, the
+    parent's norm ``sqrt(Σ sum(t·t))``), of torch's own
+    ``get_total_norm(foreach=True)``, ``_fused_adamw_`` and
+    ``clip_grad_norm_(foreach=True)`` + ``_fused_adamw_`` on the same lists
+    (yardsticks of time only: torch's AdamW places ε and the decay
+    elsewhere), and the bounds (bytes each once / the card's rate). The
+    lists change from run to run: only the times count."""
+    c = {k: [OC.fresh(t) for t in v] for k, v in lists.items()}
+    g, p, mu, nu, e = (c[k] for k in ("grads", "params", "mu", "nu", "ema"))
+    nu = nu if kind == "adamw" else None
+    e = e if ema else None
+    step = OPT.Step(kind, lr=3e-3, count=count, clip=10.0, weight_decay=0.05,
+                    ema_decay=np.float32(0.9) if ema else None)
+    norm = OPT.GLOBAL_NORM(g)
+    gl = [x.contiguous() for x in g]     # torch's fused AdamW wants one layout
+    steps = [torch.ones((), device=DEVICE) for _ in p]
+    lib = dict(lr=3e-3, beta1=OPT.B1, beta2=OPT.B2, weight_decay=0.05, eps=OPT.EPS,
+               amsgrad=False, maximize=False)
+    # the wrappers take the host up to a millisecond a call at config 2 and
+    # the plain chain some 20: spin long enough that every run is queued
+    q = {k: {**v, "spin": OPTIM_SPIN_CYCLES} for k, v in QUICK_REPS.items()}
+    out = {
+        "norm_host_ms": host_ms(lambda: OPT.GLOBAL_NORM(g)),
+        "apply_host_ms": host_ms(lambda: OPT.OPTIM_APPLY(norm, g, p, mu, nu, e, step)),
+        "norm_kernel_ms": time_ms(lambda: OPT.GLOBAL_NORM(g), **q["kernel"]),
+        "norm_plain_ms": time_ms(lambda: OPT.global_norm_reference(g), **q["plain"]),
+        "norm_parent_ms": time_ms(lambda: torch.sqrt(sum(torch.sum(t * t) for t in g)),
+                                  **q["plain"]),
+        "norm_library_ms": time_ms(lambda: torch.nn.utils.get_total_norm(g, foreach=True),
+                                   **q["plain"]),
+        "apply_kernel_ms": time_ms(lambda: OPT.OPTIM_APPLY(norm, g, p, mu, nu, e, step),
+                                   **q["kernel"]),
+        "apply_plain_ms": time_ms(lambda: OPT.optim_apply_reference(norm, g, p, mu, nu, e,
+                                                                    step), **q["plain"]),
+        "norm_bound_ms": nbytes["norm"] / HBM_BYTES_PER_S * 1e3,
+        "apply_bound_ms": nbytes["apply"] / HBM_BYTES_PER_S * 1e3,
+    }
+    if kind == "adamw":
+        out["apply_library_ms"] = time_ms(
+            lambda: torch._fused_adamw_(p, gl, mu, nu, [], steps, **lib), **q["plain"])
+        out["stage_library_ms"] = time_ms(lambda: (
+            torch.nn.utils.clip_grad_norm_(gl, 10.0, foreach=True),
+            torch._fused_adamw_(p, gl, mu, nu, [], steps, **lib)), **q["plain"])
+    return out
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    """Host ms a call of ``fn`` takes to return (the enqueue, not the card's
+    work), over ``calls`` back-to-back calls after a warm one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def phase_optim() -> tuple:
+    """Every case of ``OC.OPTIM_CASES``, then config 1's and config 2's
+    parameter shapes timed (AdamW, the clip triggered, no EMA, 5-D
+    gradients channels-last, as their train steps run). Returns (edge
+    records, {config: timed record})."""
+    log("[phase 3, optimizer] global_sumsq_partial + global_sumsq_finish and optim_apply vs "
+        "their plain versions (the fixed-order norm in elementwise ops, the foreach chain): "
+        "bit-equal (NaN equal to NaN) and bit-identical across two launches")
+    recs = []
+    for i, (name, sizes, kind, grads, count, ema) in enumerate(OC.OPTIM_CASES):
+        recs.append(optim_record(name, OC.case_shapes(sizes), kind, grads, count, ema, 800 + i))
+    shapes = {}
+    for i, config in enumerate(("config1_tiny_5cm", "config2_scannet_2cm")):
+        cs = OC.config_shapes(config)
+        if len(OPT.chunk_plan([int(np.prod(s)) for s in cs])[1]) != OPT_PER_STEP[1]:
+            raise AssertionError(f"{config}'s {len(cs)} tensors take more than one launch")
+        shapes[config] = optim_record(config, cs, "adamw", "clip", 1, False, 900 + i,
+                                      timed=True)
+    bad = [r["case"] for r in recs + list(shapes.values()) if not r["ok"]]
+    if bad:
+        raise AssertionError(f"optimizer kernels disagree with their plain versions: {bad}")
+    return recs, shapes
+
+
+def train_step_syncs(cfg, state, batches) -> dict:
+    """One warm ``TL.train_step`` with its host syncs counted by site under
+    ``set_sync_debug_mode("warn")`` (none allowed), then one under
+    ``"error"`` (any sync raises)."""
+    TL.train_step(cfg, state, batches[0])
+    with SYNCS.sync_sites() as sites:
+        TL.train_step(cfg, state, batches[1])
+    if sites:
+        raise AssertionError(f"the train step synchronises the host: {dict(sites)}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        TL.train_step(cfg, state, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  one train step under set_sync_debug_mode('error') after 0 syncs counted under "
+        "'warn': the step, optimizer included, reads nothing back on the host")
+    return {"syncs": 0, "error_mode_step": "ok"}
+
+
+# --------------------------------------------------------------------------
 # phase 6: the config-1 training slice on the card, against the CPU
 
 
-KERNELS = (sc.KERNEL, sc.DGRAD, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_GRAD)
+KERNELS = (sc.KERNEL, sc.DGRAD, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_GRAD,
+           OPT.GLOBAL_NORM, OPT.OPTIM_APPLY)
 
 
 def counts() -> tuple:
-    """Launches (forward, dgrad, wgrad, roi_crop_grad, mask_read_grad)."""
+    """Launches of ``KERNELS``, in the order of ``COUNT_NAMES``."""
     return tuple(k.launches for k in KERNELS)
 
 
@@ -1158,10 +1350,13 @@ def reset_counts() -> None:
         k.launches = 0
 
 
-def want_launches(fwd: int, dgrad: int = 0, wgrad: int = 0, scene_steps: int = 0) -> tuple:
-    """The ``counts()`` a path should give: the two indexing backwards
-    launch once per scene per train step, and never in an eval."""
-    return fwd, dgrad, wgrad, scene_steps, scene_steps
+def want_launches(fwd: int, dgrad: int = 0, wgrad: int = 0, scene_steps: int = 0,
+                  steps: int = 0) -> tuple:
+    """The ``counts()`` a path of ``steps`` train steps should give: the two
+    indexing backwards launch once per scene per train step, the optimizer's
+    kernels ``OPT_PER_STEP`` a step; none of them in an eval."""
+    return (fwd, dgrad, wgrad, scene_steps, scene_steps, OPT_PER_STEP[0] * steps,
+            OPT_PER_STEP[1] * steps)
 
 
 def grad_errors(grads_a, grads_b, names) -> dict:
@@ -1199,7 +1394,7 @@ def main_path_backward(cfg, model, batch) -> tuple:
     step's backward gives them."""
     dg, wg, rg, mg = capture(lambda: TL.loss_and_grads(cfg, model, batch), "conv_dgrad",
                              "conv_wgrad", "roi_crop_grad", "mask_read_grad")
-    if (len(dg), len(wg), len(rg), len(mg)) != PER_STEP[1:]:
+    if (len(dg), len(wg), len(rg), len(mg)) != PER_STEP[1:5]:
         raise AssertionError(f"{len(dg)} dgrad, {len(wg)} wgrad, {len(rg)} roi_crop_grad and "
                              f"{len(mg)} mask_read_grad calls in one step")
     log("  dgrad and wgrad kernels vs plain versions on the inputs of the main path "
@@ -1241,8 +1436,8 @@ def phase_train(out_dir: str) -> dict:
     torch.cuda.synchronize()
     launches = counts()
     want = tuple(TRAIN_STEPS * n for n in PER_STEP)
-    log(f"  launches in train.main over {TRAIN_STEPS} steps (forward, dgrad, wgrad, "
-        f"roi_crop_grad, mask_read_grad): {launches}, expected {want}")
+    log(f"  launches in train.main over {TRAIN_STEPS} steps ({COUNT_NAMES}): {launches}, "
+        f"expected {want}")
     if launches != want:
         raise AssertionError(f"train.main launched {launches}, expected {want}")
     with open(log_path) as f:
@@ -1270,8 +1465,9 @@ def phase_train(out_dir: str) -> dict:
                                                                      TL.TRAIN_KEYS))
             torch.cuda.synchronize()
             delta = tuple(a - b for a, b in zip(counts(), before))
-            if dev == DEVICE and delta != PER_STEP:
-                raise AssertionError(f"one train step launched {delta}, expected {PER_STEP}")
+            if dev == DEVICE and delta != PER_STEP[:5] + (0, 0):
+                raise AssertionError(f"one loss_and_grads launched {delta}, expected "
+                                     f"{PER_STEP[:5]} and no optimizer kernel")
         (tg, pg, gg, _), (tc, pc, gc, _) = res[DEVICE], res["cpu"]
         for k in pc:
             np.testing.assert_allclose(float(pg[k]), float(pc[k]), rtol=1e-4,
@@ -1325,7 +1521,9 @@ def phase_train(out_dir: str) -> dict:
             raise AssertionError(f"one step on {dev} is not bit-identical run to run: "
                                  f"{report[f'run_to_run_{dev}']}")
 
-    state =TL.init_state(cfg, model=copy.deepcopy(init).to(DEVICE))
+    state = TL.init_state(cfg, model=copy.deepcopy(init).to(DEVICE))
+    report["train_step_syncs"] = train_step_syncs(cfg, state, [
+        TL.to_device(b, DEVICE, TL.TRAIN_KEYS) for b in batches[:2]])
     split = [step_split(cfg, state, TL.to_device(b, DEVICE, TL.TRAIN_KEYS)) for b in batches]
     report["step_ms"] = {k: statistics.mean(s[k] for s in split) for k in split[0]}
     log("  warm ms per train step (host clock, synchronised after each stage, median "
@@ -1568,8 +1766,8 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
                 "--out-dir", os.path.join(out_dir, "infer_config2"), "--device", DEVICE])
     torch.cuda.synchronize()
     rep["launches_infer"] = counts()
-    log(f"  launches in infer.main, one batch (forward, dgrad, wgrad, roi_crop_grad, "
-        f"mask_read_grad): {counts()}, expected {want_launches(n_eval)}")
+    log(f"  launches in infer.main, one batch ({COUNT_NAMES}): {counts()}, expected "
+        f"{want_launches(n_eval)}")
     if counts() != want_launches(n_eval):
         raise AssertionError(f"config-2 infer.main launched {counts()}")
     log_path = os.path.join(out_dir, "train_log_config2.jsonl")
@@ -1583,7 +1781,8 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
     torch.cuda.synchronize()
     rep["launches_train"] = counts()
     want = want_launches(C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * (n_train - 1),
-                         C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * cfg.data.batch_size)
+                         C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * cfg.data.batch_size,
+                         steps=C2_TRAIN_STEPS)
     log(f"  launches in train.main over {C2_TRAIN_STEPS} steps: {counts()}, expected {want}")
     if counts() != want:
         raise AssertionError(f"config-2 train.main launched {counts()}, expected {want}")
@@ -1660,7 +1859,7 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
                                  "conv_forward", "conv_dgrad", "conv_wgrad", "roi_crop_grad",
                                  "mask_read_grad")
     if (len(fw), len(dg), len(wg), len(rg), len(mg)) != want_launches(n_train, n_train - 1,
-                                                                      n_train, bs):
+                                                                      n_train, bs)[:5]:
         raise AssertionError(f"{len(fw)} forward, {len(dg)} dgrad, {len(wg)} wgrad, {len(rg)} "
                              f"roi_crop_grad and {len(mg)} mask_read_grad calls in one step")
     log(f"  forward, dgrad and wgrad kernels vs plain versions on the inputs of one config-2 "
@@ -1772,7 +1971,7 @@ def run_cli(fn, argv, what: str):
     out = fn(argv)
     torch.cuda.synchronize()
     got = counts()
-    log(f"  {what}: launches (forward, dgrad, wgrad, roi_crop_grad, mask_read_grad) {got}")
+    log(f"  {what}: launches ({COUNT_NAMES}) {got}")
     return out, got
 
 
@@ -1952,7 +2151,8 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
                                       "--log-file", log_path], "config1 train.main, 4 steps")
     evals_fwd = 2 * n // cfg.data.batch_size        # 2 evals of 3 scenes, batch 1
     expect(got, want_launches(4 * PER_STEP[0] + PER_STEP[0] * evals_fwd, 4 * PER_STEP[1],
-                              4 * PER_STEP[2], 4 * PER_STEP[3]), "config1 train.main launches")
+                              4 * PER_STEP[2], 4 * PER_STEP[3], steps=4),
+           "config1 train.main launches")
     rep["launches"]["config1 train.main (4 steps, 2 evals)"] = got
     lines = jsonl(log_path)
     evals = [r for r in lines if r["kind"] == "eval"]
@@ -1997,7 +2197,7 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
                                       "train.total_steps=6", "--device", DEVICE, "--resume",
                                       "--log-file", log_path], "config1 train.main --resume")
     expect(got, want_launches(2 * PER_STEP[0] + PER_STEP[0] * n, 2 * PER_STEP[1],
-                              2 * PER_STEP[2], 2 * PER_STEP[3]),
+                              2 * PER_STEP[2], 2 * PER_STEP[3], steps=2),
            "config1 train.main --resume launches")
     rep["launches"]["config1 train.main --resume (2 steps, 1 eval)"] = got
     lines = jsonl(log_path)
@@ -2059,7 +2259,7 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
                          "config2 train.main, 2 steps")
     evals_fwd = -(-n // cfg2.data.batch_size)
     expect(got, want_launches(2 * n_train + evals_fwd * n_eval, 2 * (n_train - 1), 2 * n_train,
-                              2 * cfg2.data.batch_size), "config2 train.main launches")
+                              2 * cfg2.data.batch_size, steps=2), "config2 train.main launches")
     rep["launches"]["config2 train.main (2 steps, 1 eval)"] = got
     res2, got = run_cli(eval_cli.main, ["--config", CONFIG2, *sets2, "--best",
                                         "--device", DEVICE], "config2 eval.main --best")
@@ -2355,7 +2555,7 @@ def reader_config(name, path, sets, out_dir, tmp_dir, rep) -> dict:
     state, got = run_cli(train_cli.main, args + ["--set", "train.total_steps=2", "--device",
                                                  DEVICE, "--log-file", log_path],
                          f"{name} train.main, 2 steps")
-    expect(got, want_launches(2 * n_fwd, 2 * (n_train - 1), 2 * n_train, 2 * bs),
+    expect(got, want_launches(2 * n_fwd, 2 * (n_train - 1), 2 * n_train, 2 * bs, steps=2),
            f"{name} train.main launches")
     rep["launches"][f"{name} train.main (2 steps)"] = got
     out = {"convs": {"eval": n_eval, "train": n_train, "train_forward_launches": n_fwd},
@@ -2408,7 +2608,7 @@ def phase_data_layer(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
                      "config2 (ScanNet reader, Loader) train.main, 3 steps")
     evals_fwd = -(-EVAL_SCENES // d.batch_size)
     expect(got, want_launches(3 * n_train + evals_fwd * n_eval, 3 * (n_train - 1), 3 * n_train,
-                              3 * d.batch_size), "config2 ScanNet train.main launches")
+                              3 * d.batch_size, steps=3), "config2 ScanNet train.main launches")
     rep["launches"]["config2 scannet train.main (3 steps, 1 eval)"] = got
     rep["config2_losses"] = train_losses(log_path, 3, "config2 ScanNet train.main")
     loader_line = [r for r in jsonl(log_path) if r["kind"] == "loader"]
@@ -2497,7 +2697,8 @@ def phase_data_layer(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> dict:
             "--device", DEVICE, "--log-file", log_path], f"pool_dropout train.main, run {run}")
         expect(got, want_launches(POOL_TRAIN_STEPS * n_fwd, POOL_TRAIN_STEPS * (n_fwd - 1),
                                   POOL_TRAIN_STEPS * n_fwd,
-                                  POOL_TRAIN_STEPS * cfg.data.batch_size),
+                                  POOL_TRAIN_STEPS * cfg.data.batch_size,
+                                  steps=POOL_TRAIN_STEPS),
                "pool_dropout train.main launches")
         rep["launches"][f"pool_dropout train.main ({POOL_TRAIN_STEPS} steps, run {run})"] = got
         states.append(st)
@@ -2650,7 +2851,8 @@ def dp_world1(out_dir: str, tmp_dir: str) -> dict:
         "--set", f"train.total_steps={DP_STEPS}", "--device", DEVICE, "--dist-backend", "nccl",
         "--log-file", log_path], f"config5 world 1 (NCCL) train.main, {DP_STEPS} steps")
     expect(got, want_launches(DP_STEPS * n_fwd + EVAL_SCENES * n_eval, DP_STEPS * (n_train - 1),
-                              DP_STEPS * n_train, DP_STEPS * cfg.data.batch_size),
+                              DP_STEPS * n_train, DP_STEPS * cfg.data.batch_size,
+                              steps=DP_STEPS),
            "config5 world-1 train.main launches")
     lines = jsonl(log_path)
     head = lines[0]
@@ -2674,7 +2876,7 @@ def dp_world1(out_dir: str, tmp_dir: str) -> dict:
     n = require_equal_states(a, b, "config5 world-1 DP step against TL.train_step")
     if sorted(ma) != sorted(mb) or not all(torch.equal(ma[k], mb[k]) for k in mb):
         raise AssertionError(f"config5 world-1 DP metrics {ma} against {mb}")
-    expect(launches, want_launches(n_fwd, n_train - 1, n_train, cfg.data.batch_size),
+    expect(launches, want_launches(n_fwd, n_train - 1, n_train, cfg.data.batch_size, steps=1),
            "config5 world-1 DP step launches")
     n_params = sum(p.numel() for p in a.model.parameters())
     step = DP.make_parallel_train_step(cfg, world)
@@ -2707,7 +2909,7 @@ def dp_world2(out_dir: str, tmp_dir: str) -> dict:
                     world=2) as loader:
             share = TL.to_device(next(loader), device, TL.TRAIN_KEYS)
         state, m, launches, (calls, nbytes) = dp_step_record(world, cfg, init, share)
-        expect(launches, want_launches(n_fwd, n_train - 1, n_train, 1),    # a scene a rank
+        expect(launches, want_launches(n_fwd, n_train - 1, n_train, 1, steps=1),  # a scene a rank
                f"config5 world-2 {dtype} DP launches")
         ranks = DP.gather_to_rank0(digests(state), world)
         r = {"launches": launches, "all_reduces": calls, "bytes_all_reduced": nbytes,
@@ -3021,7 +3223,8 @@ def phase_tools(out_dir: str, tmp_dir: str, smi: str, c2: dict) -> dict:
                      f"config2 train.main --profile, {PROFILE_STEPS} steps")
     wall = time.perf_counter() - t0
     expect(got, want_launches(PROFILE_STEPS * n_train, PROFILE_STEPS * (n_train - 1),
-                              PROFILE_STEPS * n_train, PROFILE_STEPS * cfg.data.batch_size),
+                              PROFILE_STEPS * n_train, PROFILE_STEPS * cfg.data.batch_size,
+                              steps=PROFILE_STEPS),
            "config2 train.main --profile launches")
     rep["launches"][f"config2 train.main --profile ({PROFILE_STEPS} steps)"] = got
     train_losses(log_path, PROFILE_STEPS, "config2 train.main --profile")
@@ -3148,7 +3351,7 @@ def phase_tools(out_dir: str, tmp_dir: str, smi: str, c2: dict) -> dict:
                                           "--resume", "--device", DEVICE,
                                           "--log-file", log_path],
                          f"config2 converted to {to}: train.main --resume, one step")
-        expect(got, want_launches(n_f, n_t - 1, n_t, tcfg.data.batch_size),
+        expect(got, want_launches(n_f, n_t - 1, n_t, tcfg.data.batch_size, steps=1),
                f"config2 converted to {to} resumed step launches")
         lines = jsonl(log_path)
         if [r["step"] for r in lines if r["kind"] == "resume"] != [src.step]:
@@ -3216,6 +3419,32 @@ def index_entry(name, replaces, launches, recs_all, main_path, config1, paths, c
             "launches_by_path": {k: v[col] for k, v in paths.items()}}
 
 
+def optim_entry(name, part, replaces, launches, recs, shapes, paths, col) -> dict:
+    """One optimizer kernel of the ``kernels`` line (``part`` "norm" or
+    "apply"): config 2's shapes at the top level, config 1's under
+    ``config1``; bit-equality over every case."""
+    def fig(r):
+        return {"ms": r[f"{part}_kernel_ms"], "plain_ms": r[f"{part}_plain_ms"],
+                "bound_ms": r[f"{part}_bound_ms"], "bound_by": "bytes",
+                "host_ms": r[f"{part}_host_ms"],
+                "library_ms": r.get(f"{part}_library_ms"),
+                **({"parent_plain_ms": r["norm_parent_ms"]} if part == "norm" else
+                   {"stage_library_ms": r["stage_library_ms"]})}
+    every = recs + list(shapes.values())
+    return {"name": name, "route": "cuda", "source": "sparse_rcnn_tpu_torch/ops/csrc/optim.cu",
+            "replaces": replaces, "launches": launches,
+            **fig(shapes["config2_scannet_2cm"]),
+            "max_abs_err": max(r["max_abs_err"] for r in every),
+            "bit_equal": all(r["bit_equal"] and r["bit_identical"] for r in every),
+            "library": ("torch.nn.utils.get_total_norm(foreach=True)" if part == "norm" else
+                        "torch._fused_adamw_ (stage: clip_grad_norm_(foreach=True) + it)"),
+            "per": "one optimizer call on config 2's 165 parameter shapes (11,711,957 f32 "
+                   "entries; AdamW, clip triggered, no EMA); launches: config-2 train.main, "
+                   f"{C2_TRAIN_STEPS} steps; config1: config 1's 48 shapes",
+            "config1": fig(shapes["config1_tiny_5cm"]),
+            "launches_by_path": {k: v[col] for k, v in paths.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of sparse_rcnn_tpu_torch.")
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "chiprun_out", "chip_smoke"),
@@ -3239,6 +3468,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     recs = phase_kernel()
     bwd_recs = phase_backward_kernels()
     index_recs = phase_index_grad()
+    optim_recs, optim_shapes = phase_optim()
     launches, split, main_path = phase_slice(args.out_dir, os.path.join(tmp_dir, "none"))
     dead = next(r for r in recs if (r["conv"], r["dtype"]) == ("all_dead", "float32"))
     enc = next(r for r in main_path if r["conv"] == "enc0.conv1")
@@ -3304,11 +3534,20 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
                     c2["launches_train"][4],
                     [r for r in index_recs if r["kernel"] == "mask_read_grad"],
                     c2["mask_grad_main_path"], train["mask_grad_main_path"], paths, 4),
+        optim_entry("global_norm", "norm",
+                    "sparse_rcnn_tpu/train/loop.py:81 (optax.clip_by_global_norm's norm), "
+                    ":293 (the grad_norm metric's optax.global_norm)",
+                    c2["launches_train"][5], optim_recs, optim_shapes, paths, 5),
+        optim_entry("optim_apply", "apply",
+                    "sparse_rcnn_tpu/train/loop.py:75-87 (make_optimizer: clip + adamw | sgd), "
+                    ":286-289 (update, apply_updates), :298-312 (the EMA)",
+                    c2["launches_train"][6], optim_recs, optim_shapes, paths, 6),
     ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "convs_random": recs, "convs_main_path": main_path,
               "dead_tile_vs_main_path": dead_vs_main,
               "backward_random": bwd_recs, "index_grad_edges": index_recs,
+              "optim_edges": optim_recs, "optim_shapes": optim_shapes,
               "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
               "train": train, "golden_train": golden_train, "config2": c2,

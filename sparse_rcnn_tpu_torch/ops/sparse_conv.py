@@ -92,14 +92,15 @@ def sparse_conv_wgrad_reference(feats: torch.Tensor, t_idx: torch.Tensor,
     return out
 
 
-def build_kernel(source: Path = _SRC, name: str = "sparse_conv") -> tuple:
-    """Compile ``source`` (by default ``csrc/sparse_conv.cu``) for sm_90a into
-    ``_build/lib<name>_<hash of the text>.so`` unless a library built from
-    the same text exists. Returns (path of the .so, nvcc's messages).
+def build_kernel(source: Path = _SRC, name: str = "sparse_conv", flags=()) -> tuple:
+    """Compile ``source`` (by default ``csrc/sparse_conv.cu``) for sm_90a,
+    with nvcc's extra ``flags``, into ``_build/lib<name>_<hash of the text
+    and flags>.so`` unless a library built from the same text and flags
+    exists. Returns (path of the .so, nvcc's messages).
     Processes that build at once (the ranks of a data-parallel run) take
     turns on a file lock: the first compiles, the others then find its
     library; a failed build raises in each of them."""
-    src = Path(source).read_bytes()
+    src = Path(source).read_bytes() + " ".join(flags).encode()
     so = _BUILD_DIR / f"lib{name}_{hashlib.sha1(src).hexdigest()[:12]}.so"
     if so.exists():
         return so, ""
@@ -108,15 +109,15 @@ def build_kernel(source: Path = _SRC, name: str = "sparse_conv") -> tuple:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if so.exists():
             return so, ""
-        return _nvcc(source, so)
+        return _nvcc(source, so, flags)
 
 
-def _nvcc(source: Path, so: Path) -> tuple:
+def _nvcc(source: Path, so: Path, flags=()) -> tuple:
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags,
            "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -126,17 +127,18 @@ def _nvcc(source: Path, so: Path) -> tuple:
 
 
 class Library:
-    """A CUDA library built by :func:`build_kernel` from ``source`` at first
-    use and loaded once, its entry points typed from ``argtypes`` (name →
-    ctypes argument types; each returns a CUDA error code)."""
+    """A CUDA library built by :func:`build_kernel` from ``source`` (with
+    nvcc's extra ``flags``) at first use and loaded once, its entry points
+    typed from ``argtypes`` (name → ctypes argument types; each returns a
+    CUDA error code)."""
 
-    def __init__(self, source: Path, name: str, argtypes: dict):
-        self.source, self.name, self.argtypes = source, name, argtypes
+    def __init__(self, source: Path, name: str, argtypes: dict, flags=()):
+        self.source, self.name, self.argtypes, self.flags = source, name, argtypes, tuple(flags)
         self._lib = None
 
     def get(self):
         if self._lib is None:
-            so, _ = build_kernel(self.source, self.name)
+            so, _ = build_kernel(self.source, self.name, self.flags)
             lib = ctypes.CDLL(str(so))
             for fn, types in self.argtypes.items():
                 getattr(lib, fn).argtypes = types

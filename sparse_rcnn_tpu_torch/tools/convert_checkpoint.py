@@ -44,7 +44,8 @@ def convert_state(cfg: Config, state: TL.TrainState) -> TL.TrainState:
     """``state`` (any form) in the form of ``cfg``'s ``dense_from_scale``
     (``cfg`` has no ``dense_from_scale_train``), on the state's device. The
     lists in ``model.parameters()`` order (EMA, moments, accumulator) are
-    converted by parameter name and put in the new model's order."""
+    converted by parameter name and put in the new model's order, each
+    contiguous (the conversion permutes entries)."""
     if TL.train_cfg(cfg) is not cfg:
         raise ValueError("the target config of a conversion has no dense_from_scale_train")
     to_s0 = cfg.model.backbone.dense_from_scale
@@ -57,7 +58,7 @@ def convert_state(cfg: Config, state: TL.TrainState) -> TL.TrainState:
         if ts is None:
             return None
         moved = convert_variables(dict(zip(names, ts)), to_s0)
-        return [moved[n] for n in new_names]
+        return [moved[n].contiguous() for n in new_names]     # the kernels' layout
 
     opt = state.opt_state
     return TL.TrainState(

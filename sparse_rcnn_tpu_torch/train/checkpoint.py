@@ -142,7 +142,9 @@ def save(manager: CheckpointManager, state: TL.TrainState) -> bool:
 
 
 def _onto(saved, like, what: str):
-    """Saved tensors copied onto the devices and dtypes of ``like``."""
+    """Saved tensors copied onto the devices, dtypes and layouts of ``like``
+    (a saved tensor may be a strided view, as a converted checkpoint's are;
+    the optimizer's kernels take the state contiguous, as it is made)."""
     if (saved is None) != (like is None):
         raise ValueError(f"checkpoint {what}: saved {'none' if saved is None else 'some'}, "
                          f"the state expects {'none' if like is None else 'some'}")
@@ -155,7 +157,7 @@ def _onto(saved, like, what: str):
         if s.shape != t.shape:
             raise ValueError(f"checkpoint {what}: shape {tuple(s.shape)} against "
                              f"{tuple(t.shape)}")
-        out.append(s.to(device=t.device, dtype=t.dtype, copy=True))
+        out.append(torch.empty_like(t).copy_(s))
     return out
 
 

@@ -10,10 +10,12 @@ The optimizer is optax's chain written out over the port's parameters:
 eps_root 0, then decoupled weight decay on every parameter, then ``-lr``)
 or ``sgd`` with momentum 0.9, inside ``MultiSteps`` when
 ``train.grad_accum_steps > 1``, with the ``warmup_cosine_decay_schedule``
-read at the count before each update, and the optional EMA. Unlike the
-functional JAX step, :func:`train_step` updates the parameters, the
-optimizer state and the BN running statistics in place and returns the
-same :class:`TrainState`.
+read at the count before each update, and the optional EMA, all in one
+pass after the norm (``ops/optim.py``: on the card the hand-written kernels
+of ``ops/csrc/optim.cu``, on the CPU the plain ``torch._foreach_*`` chain
+they repeat). Unlike the functional JAX step, :func:`train_step` updates
+the parameters, the optimizer state and the BN running statistics in place
+and returns the same :class:`TrainState`.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from ..models.convert import convert_variables
 from ..models.detector import SparseRCNN, paint_instance_masks
 from ..models.targets import roi_targets, rpn_targets
 from ..ops import hierarchy as H
+from ..ops import optim as OPT
+from ..ops.optim import global_norm
 from ..ops.consts import device_tensor
 from ..ops import voxelize as V
 from ..parallel import context as DPC
@@ -301,9 +305,10 @@ class OptState:
 
 class Optimizer:
     """optax ``[MultiSteps](chain(clip_by_global_norm, adamw | sgd))`` over
-    lists of tensors, in the order of ``model.parameters()``."""
-
-    B1, B2, EPS = 0.9, 0.999, 1e-8
+    lists of tensors, in the order of ``model.parameters()``, with the EMA
+    in the same pass: :func:`~..ops.optim.global_norm`, then
+    :func:`~..ops.optim.optim_apply` (the kernels of ``ops/csrc/optim.cu``
+    on the card, the plain chain on the CPU)."""
 
     def __init__(self, cfg: Config):
         self.schedule = make_schedule(cfg)
@@ -319,11 +324,14 @@ class Optimizer:
                         acc_grads=zeros() if self.k > 1 else None)
 
     @torch.no_grad()
-    def apply(self, state: OptState, params: List[torch.Tensor],
-              grads: List[torch.Tensor]) -> bool:
-        """One optimizer call on ``grads``: updates ``params`` and ``state``
-        in place; returns whether an update was applied (always, unless
-        this is a ``MultiSteps`` mini-step)."""
+    def apply(self, state: OptState, params: List[torch.Tensor], grads: List[torch.Tensor],
+              ema: Optional[List[torch.Tensor]] = None,
+              ema_decay: Optional[np.float32] = None) -> Optional[torch.Tensor]:
+        """One optimizer call on ``grads``: updates ``params``, ``state``
+        (its moments in place) and, given, the EMA copy ``ema`` with decay
+        ``ema_decay`` (1 on a ``MultiSteps`` mini-step, which applies no
+        update). Returns the clip's norm ‖g‖ (a 0-d tensor on the
+        parameters' device) when an update was applied, else None."""
         if self.k > 1:
             # running mean of the micro-grads; the inner chain runs on the
             # mean every k-th call, and only then advances its state
@@ -334,47 +342,18 @@ class Optimizer:
             emit = state.mini_step == self.k - 1
             state.mini_step = (state.mini_step + 1) % self.k
             if not emit:
-                return False
+                if ema is not None:
+                    OPT.optim_apply(None, None, params, None, None, ema,
+                                    OPT.Step("ema", ema_decay=np.float32(1)))
+                return None
             grads, state.acc_grads = acc, [torch.zeros_like(a) for a in acc]
-        updates = self._clip(grads)
+        norm = global_norm(grads)
         lr = self.schedule(state.count)
         state.count += 1
-        if self.sgd:
-            torch._foreach_mul_(state.mu, 0.9)
-            torch._foreach_add_(state.mu, updates)          # trace: g + 0.9 t
-            updates = state.mu
-        else:
-            updates = self._adam(state, updates, params)
-        torch._foreach_add_(params, torch._foreach_mul(updates, -lr))
-        return True
-
-    def _clip(self, grads):
-        """``clip_by_global_norm``: t / ‖g‖ · max_norm when ‖g‖ ≥ max_norm
-        (no epsilon, as optax)."""
-        g_norm = global_norm(grads)
-        keep = g_norm < self.clip
-        return [torch.where(keep, g, g / g_norm * self.clip) for g in grads]
-
-    def _adam(self, state: OptState, g, params):
-        b1, b2 = self.B1, self.B2
-        mu = torch._foreach_mul(g, 1 - b1)
-        torch._foreach_add_(mu, torch._foreach_mul(state.mu, b1))
-        nu = torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2)
-        torch._foreach_add_(nu, torch._foreach_mul(state.nu, b2))
-        state.mu, state.nu = mu, nu
-        t = np.float32(state.count)          # the count after this update
-        mu_hat = torch._foreach_div(mu, float(np.float32(1) - np.float32(b1) ** t))
-        nu_hat = torch._foreach_div(nu, float(np.float32(1) - np.float32(b2) ** t))
-        torch._foreach_sqrt_(nu_hat)
-        torch._foreach_add_(nu_hat, self.EPS)
-        updates = torch._foreach_div(mu_hat, nu_hat)
-        torch._foreach_add_(updates, torch._foreach_mul(params, self.weight_decay))
-        return updates
-
-
-def global_norm(tensors) -> torch.Tensor:
-    """optax ``global_norm``: √(Σ over tensors of Σ x²)."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+        OPT.optim_apply(norm, grads, params, state.mu, state.nu, ema, OPT.Step(
+            "sgd" if self.sgd else "adamw", lr=lr, count=state.count, clip=self.clip,
+            weight_decay=self.weight_decay, ema_decay=ema_decay))
+        return norm
 
 
 @dataclasses.dataclass
@@ -509,19 +488,27 @@ def train_step(cfg: Config, state: TrainState, batch: Dict[str, torch.Tensor]):
     with torch.no_grad():
         if world is not None:
             DPC.all_reduce_flat_(grads, world)
-        metrics["grad_norm"] = global_norm(grads)
-        applied = Optimizer(cfg).apply(state.opt_state, params, grads)
-        if cfg.train.ema > 0:
-            # debiased EMA: the (1+t)/(10+t) ramp capped at the decay; with
-            # accumulation only on calls that applied an update
-            t = np.float32(state.step)
-            d = min(np.float32(cfg.train.ema), (np.float32(1) + t) / (np.float32(10) + t))
-            if cfg.train.grad_accum_steps > 1 and not applied:
-                d = np.float32(1)
-            torch._foreach_mul_(state.ema_params, float(d))
-            torch._foreach_add_(state.ema_params,
-                                torch._foreach_mul(params, float(np.float32(1) - d)))
+        metrics["grad_norm"] = optimizer_step(cfg, state, params, grads)
         if world is not None:
             reduce_metrics(metrics, world)
     state.step += 1
     return state, metrics
+
+
+@torch.no_grad()
+def optimizer_step(cfg: Config, state: TrainState, params: List[torch.Tensor],
+                   grads: List[torch.Tensor]) -> torch.Tensor:
+    """The optimizer stage of :func:`train_step`, in place: the update and,
+    with ``train.ema > 0``, the debiased EMA (the (1+t)/(10+t) ramp capped
+    at the decay; with accumulation only on calls that applied an update)
+    in the same pass. Returns ``grad_norm``, the norm of the raw gradients:
+    the clip's own norm, unless gradients accumulate (the clip then takes
+    the norm of their mean)."""
+    opt = Optimizer(cfg)
+    d = None
+    if cfg.train.ema > 0:
+        t = np.float32(state.step)
+        d = min(np.float32(cfg.train.ema), (np.float32(1) + t) / (np.float32(10) + t))
+    raw = global_norm(grads) if opt.k > 1 else None
+    norm = opt.apply(state.opt_state, params, grads, state.ema_params, d)
+    return norm if raw is None else raw

@@ -181,3 +181,21 @@ def test_resumed_step_matches_unconverted(unconverted_step, config_file, tmp_pat
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
                                    atol=SPARSE_TOL["atol"] * scale, err_msg=name)
     assert (conv.step, conv.opt_state.count) == (state.step, state.opt_state.count) == (1, 4)
+
+
+@pytest.mark.parametrize("to", ["none", "1"])
+def test_converted_state_lists_are_contiguous(trees, config_file, tmp_path, to):
+    """The optimizer's kernels take the moments and the EMA contiguous, in
+    the layout ``TL.init_state`` gives them: a conversion in memory and a
+    converted checkpoint restored both keep to it (the conversion's
+    permutations once came back as strided views)."""
+    src, out = str(tmp_path / "src"), str(tmp_path / "out")
+    state = _save_port(trees, config_file, src)
+    to_s0 = None if to == "none" else int(to)
+    conv = PCC.convert_state(_cfg(config_file, src, PCC.form_overrides(to_s0)), state)
+    _convert(config_file, src, out, to)
+    _, restored = _restore(config_file, out, to_s0)
+    for st in (conv, restored):
+        for key, ts in (("ema", st.ema_params), ("mu", st.opt_state.mu),
+                        ("nu", st.opt_state.nu), ("acc", st.opt_state.acc_grads)):
+            assert all(t.is_contiguous() for t in ts), key

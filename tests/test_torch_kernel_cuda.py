@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-sparse conv's (forward, dgrad, wgrad) and the gather-form backwards of the
-RoI crop and the bf16 mask read (``roi_crop_grad``, ``mask_read_grad``).
+sparse conv's (forward, dgrad, wgrad), the gather-form backwards of the
+RoI crop and the bf16 mask read (``roi_crop_grad``, ``mask_read_grad``),
+and the optimizer's (``global_sumsq_*``, ``optim_apply``).
 
 This file imports neither jax nor the JAX package, so that it also runs on a
 machine that has a card and no JAX. ``tests/conftest.py`` imports jax, so
@@ -12,14 +13,20 @@ Without a card every test here skips. Tolerances: f32 1e-5 (TF32 off; the
 kernel sums taps in the plain version's order); bf16 1e-2 (both sum in f32
 and round once to bf16: at most one bf16 ulp, 2^-8 relative). The two
 indexing backwards add each row's entries in the order of CUDA's
-``index_put_``, their plain version, and are held to it bit for bit.
+``index_put_``, their plain version, and are held to it bit for bit. The
+optimizer's kernels repeat their plain versions' float32 operations in
+their order and are held to them bit for bit too (NaN counts as equal to
+NaN), on ``benchmarks/optim_cases.py``'s cases, which ``chip_smoke.py``
+runs too.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from benchmarks import optim_cases as OC
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
+from sparse_rcnn_tpu_torch.ops import optim as OPT
 from sparse_rcnn_tpu_torch.ops import sparse_conv as SC
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
@@ -401,3 +408,35 @@ def test_cuda_index_reads_backward_through_the_kernels(cuda_device, dt):
         assert IG.MASK_READ_GRAD.launches == before + (0 if composite else 1)
         grads.append((out.detach(), m.grad))
     assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", OC.OPTIM_CASES, ids=lambda c: c[0])
+def test_cuda_optimizer_kernels_bit_equal_to_plain(cuda_device, case):
+    name, sizes, kind, grads, count, ema = case
+    shapes = OC.case_shapes(sizes)
+    lists = OC.optim_case(cuda_device, shapes, grads, seed=len(shapes), layout=OC.layout(name))
+    before = (OPT.GLOBAL_NORM.launches, OPT.OPTIM_APPLY.launches)
+    got, again = (OC.run_optim(lists, kind, count, ema, kernel=True) for _ in range(2))
+    want = OC.run_optim(lists, kind, count, ema, kernel=False)
+    torch.cuda.synchronize()
+    launches = len(OPT.chunk_plan([g.numel() for g in lists["grads"]])[1])
+    assert (OPT.GLOBAL_NORM.launches - before[0], OPT.OPTIM_APPLY.launches - before[1]) == (
+        0 if kind == "ema" else 2 * (launches + 1), 2 * launches)
+    for what, g, a, w in zip(("norm", "params", "mu", "nu", "ema"), got, again, want):
+        assert OC.same_bits(g, a), f"{name}: {what} differs run to run"
+        assert OC.same_bits(g, w), f"{name}: {what} differs from the plain version"
+    if grads == "nan":
+        assert all(p.isnan().all() for p in got[1])
+
+
+@pytest.mark.cuda
+def test_cuda_optimizer_kernels_refuse_a_cpu_tensor(cuda_device):
+    lists = OC.optim_case(cuda_device, [(100,), (200,), (300,)])
+    lists["grads"][1] = lists["grads"][1].cpu()
+    with pytest.raises(ValueError):
+        OPT.global_norm(lists["grads"])
+    norm = OPT.global_norm([g.to(cuda_device) for g in lists["grads"]])
+    with pytest.raises(ValueError):
+        OPT.optim_apply(norm, lists["grads"], lists["params"], lists["mu"], lists["nu"], None,
+                        OPT.Step("adamw", lr=1e-3, count=1, clip=10.0))
