@@ -20,11 +20,14 @@ nonzero:
    share of (32-row stage, tap) pairs with no live entry; then the RoI
    crop's and the mask read's backward kernels (``roi_crop_grad``,
    ``mask_read_grad``, ``ops/index_grad.py``) against their plain version,
-   CUDA's accumulating ``index_put_``, bit-equal and bit-identical across
-   two launches, on edge cases (``ROI_GRAD_EDGES``: every corner dead, every
-   live corner into row 0, M below one block with one box, a box with no
-   live corner, C 16 and 32, f32 and bf16; ``MASK_GRAD_EDGES``: one
-   proposal, a box that holds no point, a proposal all in one cell, runs
+   CUDA's accumulating ``index_put_`` over every entry, bit-equal and
+   bit-identical across two launches, and the mask read's map kernel
+   (``mask_read_map``) against the plain stable sort the same way, on edge
+   cases (``ROI_GRAD_EDGES``: every corner dead, every live corner into row
+   0, M below one block with one box, a box with no live corner, C 16 and
+   32, f32 and bf16; ``benchmarks/mask_map_cases.py``: one proposal, a box
+   that holds no point, every box so, a proposal all in one cell, a long
+   kept run among as many left-out entries on one cell, no ``keep``, runs
    shorter than a warp's pass), with kernel, map, plain, library and bound
    times; then the optimizer's kernels (``global_sumsq_partial`` +
    ``global_sumsq_finish``, ``optim_apply``, ``ops/optim.py``) against their
@@ -171,8 +174,9 @@ nonzero:
 13. a ``kernels`` JSON line (config-2 figures at the top level, config 1's
    under ``config1``, config1_pool_dropout's under ``pool_dropout``;
    launches of every path under ``launches_by_path``, phase 11's ranks and
-   phase 12's paths too; ``roi_crop_grad`` and ``mask_read_grad`` with
-   their maps' ms and whether every comparison was bit-equal; ``global_norm``
+   phase 12's paths too; ``roi_crop_grad``, ``mask_read_map`` and
+   ``mask_read_grad`` with their maps' ms and whether every comparison was
+   bit-equal; ``global_norm``
    and ``optim_apply`` likewise), then as the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -207,6 +211,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import sparse_rcnn_tpu_torch.train.__main__ as train_cli
 from benchmarks import eval_step_syncs as SYNCS
+from benchmarks import mask_map_cases as MC
 from benchmarks import optim_cases as OC
 from benchmarks import profile_torch_slice as PROF
 from sparse_rcnn_tpu_torch import eval as eval_cli
@@ -320,7 +325,8 @@ DP_TOL = {"float32": {"loss_rtol": 1e-5, "params_atol": 1e-5, "grads_rel": 2e-2}
 PROFILE_STEPS = 2
 TRACE_KERNELS = ("sparse_conv_fwd_kernel", "sparse_conv_wgrad_partial_kernel",
                  "sparse_conv_wgrad_reduce_kernel", "roi_crop_grad_kernel",
-                 "mask_read_grad_kernel", "global_sumsq_partial_kernel",
+                 "mask_read_grad_kernel", "mask_map_keep_kernel", "mask_map_count_kernel",
+                 "mask_map_scan_kernel", "mask_map_place_kernel", "global_sumsq_partial_kernel",
                  "global_sumsq_finish_kernel", "optim_apply_kernel")
 SIZE_SCENES = 4
 
@@ -381,12 +387,12 @@ QUICK_REPS = {"kernel": dict(reps=10, inner=5), "plain": dict(reps=5, inner=1),
 # launches of global_norm (partials and finish) and optim_apply in one train
 # step: every config's parameter list fits one launch (OPT.MAX_TENSORS)
 OPT_PER_STEP = (2, 1)
-# forward, dgrad (the stem's input needs none), wgrad, roi_crop_grad and
-# mask_read_grad (once a scene; config 1 trains on batches of 1), then the
-# optimizer's; PER_STEP[:5] is loss_and_grads' alone
-PER_STEP = (10, 9, 10, 1, 1, *OPT_PER_STEP)
-COUNT_NAMES = ("forward, dgrad, wgrad, roi_crop_grad, mask_read_grad, global_norm, "
-               "optim_apply")
+# forward, dgrad (the stem's input needs none), wgrad, roi_crop_grad,
+# mask_read_grad and mask_read_map (once a scene; config 1 trains on batches
+# of 1), then the optimizer's; PER_STEP[:6] is loss_and_grads' alone
+PER_STEP = (10, 9, 10, 1, 1, 1, *OPT_PER_STEP)
+COUNT_NAMES = ("forward, dgrad, wgrad, roi_crop_grad, mask_read_grad, mask_read_map, "
+               "global_norm, optim_apply")
 # card against CPU, one config-1 step, per parameter relative to the
 # largest entry of its gradient. Outside the RoI head: with the mask weight
 # 0, f32 sums of up to 32768*27 products in other orders through ~20
@@ -469,8 +475,8 @@ def build() -> None:
         built = list(pool.map(lambda a: sc.build_kernel(*a),
                               [(sc._SRC, "sparse_conv"), (IG._SRC, "index_grad"),
                                (OPT._SRC, "optim", OPT._LIB.flags)]))
-    for k in (sc.KERNEL, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_GRAD, OPT.GLOBAL_NORM,
-              OPT.OPTIM_APPLY):
+    for k in (sc.KERNEL, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_MAP, IG.MASK_READ_GRAD,
+              OPT.GLOBAL_NORM, OPT.OPTIM_APPLY):
         k.load()
     log(f"[phase 2] built {', '.join(os.path.relpath(so, ROOT) for so, _ in built)} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1015,27 +1021,6 @@ def roi_grad_inputs(m, c, p, d, dtype, case, seed):
     return g, w, idx.to(torch.int32).contiguous(), m
 
 
-def mask_grad_inputs(p, grid, n, case, seed):
-    """The mask read's backward inputs, on the card: the cells that
-    ``sample_mask_at_positions`` reads for p random boxes (sides 5-30
-    voxels) and n points in a 100-voxel cube; ``empty_box`` moves box 0
-    away from every point (all its points on border cells), ``one_cell``
-    puts every point of proposal 0 in cell 0. Returns (g bf16 [p, n],
-    cell, cells)."""
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    lo = torch.rand((p, 3), generator=gen, device=DEVICE) * 80
-    boxes = torch.cat([lo, lo + 5 + 25 * torch.rand((p, 3), generator=gen, device=DEVICE)], 1)
-    if case == "empty_box":
-        boxes[0] = torch.tensor([500.0, 500, 500, 510, 510, 510], device=DEVICE)
-    pos = torch.rand((n, 3), generator=gen, device=DEVICE) * 100
-    mask = torch.zeros((p, grid, grid, grid), device=DEVICE)
-    (_, cell), = capture(lambda: PHd.sample_mask_at_positions(mask, boxes, pos), "mask_read")
-    if case == "one_cell":
-        cell[0] = 0
-    g = torch.randn((p, n), generator=gen, device=DEVICE).to(torch.bfloat16)
-    return g, cell.contiguous(), grid ** 3
-
-
 def index_grad_record(name, kernel, got, again, want, nbytes, runs, longest, reps) -> dict:
     """A kernel of ``ops/index_grad.py`` against its plain version: bit
     equality, bit identity across two launches, card times of ``runs``
@@ -1084,30 +1069,97 @@ def measure_roi_grad(name, g, w, idx, m, reps=None) -> dict:
     return rec
 
 
-def measure_mask_grad(name, g, cell, cells, reps=None) -> dict:
-    """mask_read_grad on (g bf16 [P, N], cell [P, N] of ``cells``); library
-    and bound as :func:`measure_roi_grad`'s (every entry of the map)."""
-    p = g.shape[0]
-    rmap = IG.mask_read_map(cell, cells)
-    got, again = (IG.MASK_READ_GRAD(g, rmap, p * cells) for _ in range(2))
+def full_runs(cell, keep, cells) -> dict:
+    """The rows of the mask read over every entry, as the parent's map held
+    them: the longest, the slots whose longest row holds more than half of
+    the points (with each slot's kept points: 0 for a box that holds none),
+    the slots that keep no point, and the longest row of kept entries."""
+    p, n = cell.shape
+    rows = torch.zeros((p, cells), dtype=torch.int64, device=cell.device)
+    rows.scatter_add_(1, cell.long(), torch.ones_like(cell, dtype=torch.int64))
+    longest = rows.max(1).values.cpu()
+    kept = (keep.sum(1) if keep is not None else torch.full((p,), n)).cpu()
+    kept_rows = torch.zeros_like(rows)
+    if keep is not None:
+        kept_rows.scatter_add_(1, cell.long(), keep.to(torch.int64))
+    else:
+        kept_rows = rows
+    return {"longest_full_run": int(longest.max()),
+            "slots_over_half": [[i, int(longest[i]), int(kept[i])]
+                                for i in range(p) if longest[i] > n // 2],
+            "slots_keeping_none": [i for i in range(p) if kept[i] == 0],
+            "longest_kept_row": int(kept_rows.max())}
+
+
+def measure_mask_grad(name, g, cell, keep, cells, reps=None, unit=None) -> list:
+    """The mask read's backward on (g bf16 [P, N], cell [P, N] of
+    ``cells``, keep bool [P, N] or None): two records, ``mask_read_map``
+    (the kernel's map against the plain version's, bit for bit; times of the
+    kernel, the plain version, the parent's map of every entry (one stable
+    sort and a search) and ``torch.sort`` alone (library); bound: keep read
+    once, cell read once in the proposals that keep a point (a proposal
+    that keeps none needs no cell), the kept entries' perm and lane and the
+    offsets written once) and ``mask_read_grad`` over the kernel's map
+    (against ``index_put_`` over every entry; library: that ``index_put_``
+    alone; bound: the offsets and the kept entries' lane, perm and g read
+    once, the rows written once). ``unit``: the map's block size
+    (``MC.map_unit``; by default ``IG.map_unit``'s)."""
+    with MC.map_unit(unit):
+        return _measure_mask_grad(name, g, cell, keep, cells, reps or REPS)
+
+
+def _measure_mask_grad(name, g, cell, keep, cells, reps) -> list:
+    p, n = cell.shape
+    rows = p * cells
+    chk = MC.check_mask_case(g, cell, keep, cells)
+    rmap = IG.MASK_READ_MAP(cell, cells, keep)
+    got, again = (IG.MASK_READ_GRAD(g, rmap, rows) for _ in range(2))
     want = IG.mask_read_grad_reference(g, cell, cells).reshape(-1)
     prow = torch.arange(p, device=g.device)[:, None]
     ix = cell.to(torch.int64)
     buf = torch.zeros((p, cells), dtype=g.dtype, device=g.device)
-    nbytes = g.numel() * (2 + 4) + (p * cells + 1) * 4 + p * cells * 2
-    rec = index_grad_record(name, "mask_read_grad", got, again, want, nbytes, {
-        "kernel": lambda: IG.MASK_READ_GRAD(g, rmap, p * cells),
-        "map": lambda: IG.mask_read_map(cell, cells),
+    full_key = (cell + torch.arange(p, dtype=torch.int32, device=cell.device)[:, None]
+                * cells).reshape(-1)
+    key = full_key if keep is None else torch.where(keep.reshape(-1), full_key, rows)
+    kept = chk["kept"]
+    active = p if keep is None else int(keep.any(1).sum())
+    runs = full_runs(cell, keep, cells)
+    grad = index_grad_record(name, "mask_read_grad", got, again, want,
+                             (rows + 1) * 4 + kept * (1 + 4 + 2) + rows * 2, {
+        "kernel": lambda: IG.MASK_READ_GRAD(g, rmap, rows),
+        "map": lambda: IG.MASK_READ_MAP(cell, cells, keep),
         "plain": lambda: IG.mask_read_grad_reference(g, cell, cells),
         "library": lambda: buf.index_put_((prow, ix), g, accumulate=True)},
-        int(rmap[1].diff().max()), reps or REPS)
-    rec.update(P=p, N=g.shape[1], cells=cells)
-    return rec
+        runs["longest_kept_row"], reps)
+    grad.update(P=p, N=n, cells=cells, kept=kept, kept_in_lanes=chk["kept_in_lanes"], **runs)
+    grad["ok"] = grad["ok"] and chk["bit_equal"] and chk["bit_identical"]
+    mrec = {"conv": name, "kernel": "mask_read_map", "dtype": "int32",
+            "max_abs_err": 0.0 if chk["map_bit_equal"] else float("inf"),
+            "bit_equal": chk["map_bit_equal"], "bit_identical": chk["map_bit_identical"],
+            **{f"{k}_ms": time_ms(fn, **reps["plain" if k != "kernel" else "kernel"])
+               for k, fn in {
+                   "kernel": lambda: IG.MASK_READ_MAP(cell, cells, keep),
+                   "plain": lambda: IG.mask_read_map_reference(cell, cells, keep),
+                   "parent": lambda: IG.row_map(full_key, rows),
+                   "library": lambda: torch.sort(key, stable=True)}.items()},
+            "bytes": (p * n if keep is not None else 0) + active * n * 4 + kept * (4 + 1)
+            + (rows + 1) * 4, "bound_by": "bytes", "flops": 0,
+            "P": p, "N": n, "cells": cells, "kept": kept, "proposals_keeping": active,
+            "unit": IG.MASK_READ_MAP.unit or IG.map_unit(p, n)}
+    mrec["bound_ms"] = mrec["bytes"] / HBM_BYTES_PER_S * 1e3
+    mrec["ok"] = mrec["bit_equal"] and mrec["bit_identical"]
+    log(f"  mask_read_map  {name:22s} kept {kept} of {p * n}: kernel_ms={mrec['kernel_ms']:.4f} "
+        f"plain_ms={mrec['plain_ms']:.4f} parent_ms={mrec['parent_ms']:.4f} "
+        f"library_ms(torch.sort)={mrec['library_ms']:.4f} bound_ms={mrec['bound_ms']:.4f} "
+        f"(bytes) bit_equal={mrec['bit_equal']} bit_identical={mrec['bit_identical']} "
+        f"{'ok' if mrec['ok'] else 'MISMATCH'}; full runs: longest "
+        f"{runs['longest_full_run']}, slots over half {runs['slots_over_half'][:8]}, "
+        f"slots keeping none {len(runs['slots_keeping_none'])}")
+    return [mrec, grad]
 
 
 # (name, M, C, P, D, case) of roi_crop_grad, each in f32 and bf16 (see
-# roi_grad_inputs); (name, P, G, N, case) of mask_read_grad (see
-# mask_grad_inputs; "tail" runs shorter than a warp's pass)
+# roi_grad_inputs); the mask read's are benchmarks/mask_map_cases.py's
 ROI_GRAD_EDGES = [
     ("random_c16", 32768, 16, 32, 7, "random"),
     ("random_c32", 262144, 32, 128, 7, "random"),
@@ -1116,44 +1168,46 @@ ROI_GRAD_EDGES = [
     ("m_below_block_p1", 5, 16, 1, 7, "random"),
     ("empty_box", 32768, 32, 8, 7, "box0_dead"),
 ]
-MASK_GRAD_EDGES = [
-    ("random", 32, 14, 32768, "random"),
-    ("p1", 1, 14, 32768, "random"),
-    ("one_cell", 4, 14, 32768, "one_cell"),
-    ("empty_box", 8, 14, 32768, "empty_box"),
-    ("tail", 2, 4, 37, "random"),
-]
 
 
 def phase_index_grad() -> list:
     log("[phase 3, indexing backwards] roi_crop_grad and mask_read_grad vs their plain "
-        "version (CUDA index_put_, accumulate=True): bit-equal and bit-identical across two "
-        "launches, on edge cases")
+        "version (CUDA index_put_, accumulate=True, every entry), mask_read_map vs its "
+        "plain version (a stable sort): bit-equal and bit-identical across two launches, "
+        "on edge cases")
     recs = []
     for dtype in (torch.float32, torch.bfloat16):
         for i, (name, *shape, case) in enumerate(ROI_GRAD_EDGES):
             recs.append(measure_roi_grad(name, *roi_grad_inputs(*shape, dtype, case, 600 + i),
                                          reps=QUICK_REPS))
-    for i, (name, *shape, case) in enumerate(MASK_GRAD_EDGES):
-        recs.append(measure_mask_grad(name, *mask_grad_inputs(*shape, case, 700 + i),
-                                      reps=QUICK_REPS))
+    for i, (name, *shape, case) in enumerate(MC.MASK_MAP_CASES):
+        recs += measure_mask_grad(name, *MC.mask_case(*shape, case, DEVICE, 700 + i),
+                                  reps=QUICK_REPS, unit=MC.FORCED_UNIT.get(case))
     require_ok(recs, "indexing backwards, edge cases")
     return recs
 
 
+def mask_calls(reads, mg) -> list:
+    """(g, cell, keep, cells) of each captured ``mask_read_grad`` call, its
+    keep from the ``mask_read`` call that read the same cells."""
+    keep = {cell.data_ptr(): k for _, cell, k in reads}
+    return [(g, cell, keep[cell.data_ptr()], cells) for g, cell, _, cells in mg]
+
+
 def main_path_index_grad(rg, mg, reps=None) -> tuple:
-    """Both kernels against their plain version on the captured calls of one
-    train step (``capture``'s records of ``roi_crop_grad`` and
-    ``mask_read_grad``), one record a scene; then the reads' forward and
-    backward, the maps built, under ``torch.cuda.set_sync_debug_mode
-    ("error")``: no host sync."""
+    """Both kernels and the mask read's map against their plain versions on
+    the captured calls of one train step (``capture``'s records of
+    ``roi_crop_grad``, and of ``mask_read_grad`` as :func:`mask_calls`
+    gives them), records a scene; then the reads' forward and backward, the
+    maps built, under ``torch.cuda.set_sync_debug_mode("error")``: no host
+    sync."""
     roi = [measure_roi_grad(f"scene {i}", g, w, idx, m, reps) for i, (g, w, idx, _, m)
            in enumerate(rg)]
-    mask = [measure_mask_grad(f"scene {i}", g, cell, cells, reps) for i, (g, cell, _, cells)
-            in enumerate(mg)]
+    mask = [r for i, (g, cell, keep, cells) in enumerate(mg)
+            for r in measure_mask_grad(f"scene {i}", g, cell, keep, cells, reps)]
     require_ok(roi + mask, "indexing backwards, main-path inputs")
     g, w, idx, _, m = rg[0]
-    gm, cell, _, cells = mg[0]
+    gm, cell, keep, cells = mg[0]
     feats = torch.randn((m, g.shape[1]), device=DEVICE).to(g.dtype).requires_grad_(True)
     grid = torch.zeros((gm.shape[0], cells), device=DEVICE, dtype=torch.bfloat16,
                        requires_grad=True)
@@ -1161,7 +1215,7 @@ def main_path_index_grad(rg, mg, reps=None) -> tuple:
     torch.cuda.set_sync_debug_mode("error")
     try:
         IG.corner_gather(feats, idx, w.float()).backward(g)
-        IG.mask_read(grid, cell).backward(gm)
+        IG.mask_read(grid, cell, keep).backward(gm)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1337,7 +1391,7 @@ def train_step_syncs(cfg, state, batches) -> dict:
 
 
 KERNELS = (sc.KERNEL, sc.DGRAD, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_GRAD,
-           OPT.GLOBAL_NORM, OPT.OPTIM_APPLY)
+           IG.MASK_READ_MAP, OPT.GLOBAL_NORM, OPT.OPTIM_APPLY)
 
 
 def counts() -> tuple:
@@ -1353,10 +1407,11 @@ def reset_counts() -> None:
 def want_launches(fwd: int, dgrad: int = 0, wgrad: int = 0, scene_steps: int = 0,
                   steps: int = 0) -> tuple:
     """The ``counts()`` a path of ``steps`` train steps should give: the two
-    indexing backwards launch once per scene per train step, the optimizer's
-    kernels ``OPT_PER_STEP`` a step; none of them in an eval."""
-    return (fwd, dgrad, wgrad, scene_steps, scene_steps, OPT_PER_STEP[0] * steps,
-            OPT_PER_STEP[1] * steps)
+    indexing backwards and the mask read's map launch once per scene per
+    train step, the optimizer's kernels ``OPT_PER_STEP`` a step; none of them
+    in an eval."""
+    return (fwd, dgrad, wgrad, scene_steps, scene_steps, scene_steps,
+            OPT_PER_STEP[0] * steps, OPT_PER_STEP[1] * steps)
 
 
 def grad_errors(grads_a, grads_b, names) -> dict:
@@ -1392,8 +1447,10 @@ def main_path_backward(cfg, model, batch) -> tuple:
     """The dgrad, wgrad, roi_crop_grad and mask_read_grad kernels against
     their plain versions, timed, on the inputs that one config-1 train
     step's backward gives them."""
-    dg, wg, rg, mg = capture(lambda: TL.loss_and_grads(cfg, model, batch), "conv_dgrad",
-                             "conv_wgrad", "roi_crop_grad", "mask_read_grad")
+    dg, wg, rg, mg, reads = capture(lambda: TL.loss_and_grads(cfg, model, batch),
+                                    "conv_dgrad", "conv_wgrad", "roi_crop_grad",
+                                    "mask_read_grad", "mask_read")
+    mg = mask_calls(reads, mg)
     if (len(dg), len(wg), len(rg), len(mg)) != PER_STEP[1:5]:
         raise AssertionError(f"{len(dg)} dgrad, {len(wg)} wgrad, {len(rg)} roi_crop_grad and "
                              f"{len(mg)} mask_read_grad calls in one step")
@@ -1465,9 +1522,9 @@ def phase_train(out_dir: str) -> dict:
                                                                      TL.TRAIN_KEYS))
             torch.cuda.synchronize()
             delta = tuple(a - b for a, b in zip(counts(), before))
-            if dev == DEVICE and delta != PER_STEP[:5] + (0, 0):
+            if dev == DEVICE and delta != PER_STEP[:6] + (0, 0):
                 raise AssertionError(f"one loss_and_grads launched {delta}, expected "
-                                     f"{PER_STEP[:5]} and no optimizer kernel")
+                                     f"{PER_STEP[:6]} and no optimizer kernel")
         (tg, pg, gg, _), (tc, pc, gc, _) = res[DEVICE], res["cpu"]
         for k in pc:
             np.testing.assert_allclose(float(pg[k]), float(pc[k]), rtol=1e-4,
@@ -1855,9 +1912,10 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
 
     # train: the kernels on one step's inputs, run to run, remat
     trb = [TL.to_device(b, DEVICE, TL.TRAIN_KEYS) for b in batches]
-    fw, dg, wg, rg, mg = capture(lambda: TL.loss_and_grads(tcfg, copy.deepcopy(init), trb[0]),
-                                 "conv_forward", "conv_dgrad", "conv_wgrad", "roi_crop_grad",
-                                 "mask_read_grad")
+    fw, dg, wg, rg, mg, reads = capture(
+        lambda: TL.loss_and_grads(tcfg, copy.deepcopy(init), trb[0]), "conv_forward",
+        "conv_dgrad", "conv_wgrad", "roi_crop_grad", "mask_read_grad", "mask_read")
+    mg = mask_calls(reads, mg)
     if (len(fw), len(dg), len(wg), len(rg), len(mg)) != want_launches(n_train, n_train - 1,
                                                                       n_train, bs)[:5]:
         raise AssertionError(f"{len(fw)} forward, {len(dg)} dgrad, {len(wg)} wgrad, {len(rg)} "
@@ -1887,7 +1945,7 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
         "config-2 train step (a record a scene)")
     rep["roi_grad_main_path"], rep["mask_grad_main_path"] = main_path_index_grad(
         rg, mg, QUICK_REPS)
-    del fw, dg, wg, rg, mg
+    del fw, dg, wg, rg, mg, reads
 
     runs = {}
     for remat in (False, True):
@@ -3376,7 +3434,8 @@ def totals(main_path) -> dict:
     bound ms, and what bounds the step (its bytes over the card's memory rate
     against its products over the peak rate of their type)."""
     t_bytes = sum(r["bytes"] for r in main_path) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(r["flops"] / PEAK_FLOPS[getattr(torch, r["dtype"])] for r in main_path) * 1e3
+    t_ops = sum(r["flops"] / PEAK_FLOPS[getattr(torch, r["dtype"])] for r in main_path
+                if r["flops"]) * 1e3
     return {
         "ms": sum(r["kernel_ms"] for r in main_path),
         "plain_ms": sum(r["plain_ms"] for r in main_path),
@@ -3399,23 +3458,31 @@ def kernel_entry(name, source, replaces, launches, recs_all, main_path, library,
             "config1": totals(config1), "pool_dropout": totals(pool)}
 
 
-def index_entry(name, replaces, launches, recs_all, main_path, config1, paths, col) -> dict:
-    """One indexing backward of the ``kernels`` line, as ``kernel_entry``'s
-    (config 2 at the top level, a record a scene; config 1 under
-    ``config1``), with its map's ms and whether every comparison with the
-    plain version was bit-equal."""
+def index_entry(name, replaces, launches, recs_all, main_path, config1, paths, col,
+                library="the plain version's own index_put_(accumulate=True)") -> dict:
+    """One indexing backward (or the mask read's map) of the ``kernels``
+    line, as ``kernel_entry``'s (config 2 at the top level, a record a
+    scene; config 1 under ``config1``), with its map's ms (the map kernel:
+    the parent's map's ms) and whether every comparison with the plain
+    version was bit-equal. Each record list holds this kernel's records."""
+    recs_all, main_path, config1 = ([r for r in rs if r["kernel"] == name]
+                                    for rs in (recs_all, main_path, config1))
     top = totals(main_path)
     top["max_abs_err"] = max(r["max_abs_err"] for r in recs_all + main_path + config1)
+
+    def maps(rs):
+        return {k: sum(r[k] for r in rs) for k in ("map_ms", "parent_ms") if k in rs[0]}
     return {"name": name, "route": "cuda",
             "source": "sparse_rcnn_tpu_torch/ops/csrc/index_grad.cu", "replaces": replaces,
-            "launches": launches, **top, "map_ms": sum(r["map_ms"] for r in main_path),
-            "bit_equal": all(r["bit_equal"] for r in recs_all + main_path + config1),
-            "library": "the plain version's own index_put_(accumulate=True)",
+            "launches": launches, **top, **maps(main_path),
+            "bit_equal": all(r["bit_equal"] and r["bit_identical"]
+                             for r in recs_all + main_path + config1),
+            "library": library,
             "per": "one config-2 train step (2 scenes), main-path inputs; launches: "
                    f"config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one config-1 train "
                    "step (the crop's rows f32 at config 1, bf16 at config 2; the mask read "
                    "bf16 at both)",
-            "config1": {**totals(config1), "map_ms": sum(r["map_ms"] for r in config1)},
+            "config1": {**totals(config1), **maps(config1)},
             "launches_by_path": {k: v[col] for k, v in paths.items()}}
 
 
@@ -3528,20 +3595,22 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
             train["wgrad_main_path"], pool["wgrad"]),
             launches_by_path={k: v[2] for k, v in paths.items()}),
         index_entry("roi_crop_grad", "sparse_rcnn_tpu/ops/roi.py:76", c2["launches_train"][3],
-                    [r for r in index_recs if r["kernel"] == "roi_crop_grad"],
-                    c2["roi_grad_main_path"], train["roi_grad_main_path"], paths, 3),
+                    index_recs, c2["roi_grad_main_path"], train["roi_grad_main_path"], paths, 3),
         index_entry("mask_read_grad", "sparse_rcnn_tpu/models/heads.py:99",
-                    c2["launches_train"][4],
-                    [r for r in index_recs if r["kernel"] == "mask_read_grad"],
-                    c2["mask_grad_main_path"], train["mask_grad_main_path"], paths, 4),
+                    c2["launches_train"][4], index_recs, c2["mask_grad_main_path"],
+                    train["mask_grad_main_path"], paths, 4),
+        index_entry("mask_read_map", "sparse_rcnn_tpu/models/heads.py:99",
+                    c2["launches_train"][5], index_recs, c2["mask_grad_main_path"],
+                    train["mask_grad_main_path"], paths, 5,
+                    library="torch.sort(stable=True) of the keyed entries alone"),
         optim_entry("global_norm", "norm",
                     "sparse_rcnn_tpu/train/loop.py:81 (optax.clip_by_global_norm's norm), "
                     ":293 (the grad_norm metric's optax.global_norm)",
-                    c2["launches_train"][5], optim_recs, optim_shapes, paths, 5),
+                    c2["launches_train"][6], optim_recs, optim_shapes, paths, 6),
         optim_entry("optim_apply", "apply",
                     "sparse_rcnn_tpu/train/loop.py:75-87 (make_optimizer: clip + adamw | sgd), "
                     ":286-289 (update, apply_updates), :298-312 (the EMA)",
-                    c2["launches_train"][6], optim_recs, optim_shapes, paths, 6),
+                    c2["launches_train"][7], optim_recs, optim_shapes, paths, 7),
     ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "convs_random": recs, "convs_main_path": main_path,

@@ -116,18 +116,23 @@ class SparseRCNN(nn.Module):
 
 
 def paint_instance_masks(outputs: Dict[str, torch.Tensor], scales: List[ScaleSet],
-                         masked: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                         masked: bool = True, keep: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-proposal mask logits at every stride-1 voxel center.
 
     Returns (voxel_mask_logits [B, P, M0], inside bool[B, P, M0]). With
     ``masked=True`` (inference) voxels outside the crop box get -1e9; with
     ``masked=False`` the raw sampled logits are returned (the training loss
     weights outside voxels to zero instead: the same sampling path, so train
-    and eval see the same mask geometry).
+    and eval see the same mask geometry). ``keep`` (bool [B, P, M0], None:
+    every entry): the entries whose cotangent may be other than 0, passed to
+    the read (``ops/index_grad.py::mask_read``); the training loss passes
+    the entries it weights.
     """
     centers = scales[0].coords.to(torch.float32) + 0.5
-    per = [sample_mask_at_positions(ml, bx, c) for ml, bx, c in
-           zip(outputs["mask_logits"], outputs["crop_boxes"], centers)]
+    keeps = [None] * centers.shape[0] if keep is None else keep
+    per = [sample_mask_at_positions(ml, bx, c, k) for ml, bx, c, k in
+           zip(outputs["mask_logits"], outputs["crop_boxes"], centers, keeps)]
     logits = torch.stack([p[0] for p in per])
     inside = torch.stack([p[1] for p in per])
     if masked:

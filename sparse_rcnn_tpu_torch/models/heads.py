@@ -9,7 +9,7 @@ on it: torch's NCDHW inside, NDHWC outside. The mask branch upsamples D →
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -68,18 +68,11 @@ class RoIHead(nn.Module):
         return cls_logits, m.reshape(p, dm, dm, dm)
 
 
-def sample_mask_at_positions(mask_logits: torch.Tensor, boxes: torch.Tensor,
-                             positions: torch.Tensor):
-    """Evaluate each RoI's mask grid at scene positions (one scene).
-
-    mask_logits [P, G, G, G], boxes [P, 6], positions [N, 3] → (logits
-    [P, N], inside bool[P, N]); nearest-cell sampling in the box-normalised
-    grid. The logits are read in bf16, as the JAX package reads them (its
-    row gather casts to bf16 even in f32 configs), then returned in the
-    mask logits' dtype. The read is :func:`.index_grad.mask_read`, whose
-    backward on the card is the ``mask_read_grad`` kernel.
-    """
-    g = mask_logits.shape[-1]
+def mask_cells(boxes: torch.Tensor, positions: torch.Tensor, g: int):
+    """Each position's nearest cell in each box's grid of g³ and whether it
+    lies inside the box: boxes [P, 6], positions [N, 3] → (cell int32
+    [P, N], the flat index into the box's grid, a position outside clamped
+    onto the border cells; inside bool [P, N])."""
     cells, inside = [], None
     for a in range(3):
         lo = boxes[:, a:a + 1]
@@ -92,7 +85,25 @@ def sample_mask_at_positions(mask_logits: torch.Tensor, boxes: torch.Tensor,
         cell = torch.clamp(rel * g, -1.0, float(g)).to(torch.int32)
         cells.append(cell.clamp(0, g - 1))
     cx, cy, cz = cells
-    logits = index_grad.mask_read(mask_logits.to(torch.bfloat16), (cx * g + cy) * g + cz)
+    return (cx * g + cy) * g + cz, inside
+
+
+def sample_mask_at_positions(mask_logits: torch.Tensor, boxes: torch.Tensor,
+                             positions: torch.Tensor, keep: Optional[torch.Tensor] = None):
+    """Evaluate each RoI's mask grid at scene positions (one scene).
+
+    mask_logits [P, G, G, G], boxes [P, 6], positions [N, 3] → (logits
+    [P, N], inside bool[P, N]); nearest-cell sampling in the box-normalised
+    grid (:func:`mask_cells`). The logits are read in bf16, as the JAX
+    package reads them (its row gather casts to bf16 even in f32 configs),
+    then returned in the mask logits' dtype. The read is
+    :func:`.index_grad.mask_read`, whose backward on the card is the
+    ``mask_read_grad`` kernel; ``keep`` (bool [P, N], None: every entry)
+    is its contract: the caller's cotangent is exactly 0 wherever ``keep``
+    is false.
+    """
+    cell, inside = mask_cells(boxes, positions, mask_logits.shape[-1])
+    logits = index_grad.mask_read(mask_logits.to(torch.bfloat16), cell, keep)
     return logits.to(mask_logits.dtype), inside
 
 

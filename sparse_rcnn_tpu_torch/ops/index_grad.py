@@ -14,11 +14,16 @@ CUDA tensor the backward here runs the hand-written kernels of
 with ``ctypes``) over a map built in the forward: the entries sorted
 stably by destination row, with each row's offsets. Each kernel adds a
 row's entries in the order CUDA's ``index_put_`` adds them, in f32, and
-rounds once. On a CPU tensor the backward runs the plain versions
+rounds once. The crop's map is a device sort (:func:`roi_crop_map`). The
+mask read's holds only the entries its caller keeps (``keep``: where the
+cotangent can be other than 0) with each one's lane in ``index_put_``'s
+pass over the whole run, and is built per proposal by the
+``mask_read_map`` kernel (:func:`mask_read_map`). On a
+CPU tensor the backward runs the plain versions
 :func:`roi_crop_grad_reference` and :func:`mask_read_grad_reference`:
 today's ``index_put_`` into zeros. There is no fallback: a CUDA tensor
-gets the kernels or an exception. ``ROI_CROP_GRAD`` and ``MASK_READ_GRAD``
-count the launches.
+gets the kernels or an exception. ``ROI_CROP_GRAD``, ``MASK_READ_MAP``
+and ``MASK_READ_GRAD`` count the launches.
 """
 
 from __future__ import annotations
@@ -34,11 +39,17 @@ from . import sparse_conv as sc
 _SRC = Path(__file__).resolve().parent / "csrc" / "index_grad.cu"
 _LIB = sc.Library(_SRC, "index_grad", {
     "roi_crop_grad": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "mask_read_grad": [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p],
+    "mask_read_map": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5,
+    "mask_read_map_max_cells": [ctypes.c_int],
+    "mask_read_grad": [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p],
 })
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+TAIL = 32               # a mask map entry's lane in the tail of its run
+MAP_UNIT = 32768        # points of one proposal a block of mask_read_map takes, at most
+MAP_UNITS = 2048        # blocks the map's passes aim for, units of at least 4096 points
 
 RowMap = Tuple[torch.Tensor, torch.Tensor]
+MaskMap = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # perm, offsets, lanes
 
 
 def wants_map(t: torch.Tensor) -> bool:
@@ -63,12 +74,44 @@ def roi_crop_map(idx: torch.Tensor, m: int) -> RowMap:
     return row_map(torch.where(idx >= 0, idx, m).reshape(-1), m)
 
 
-def mask_read_map(cell: torch.Tensor, cells: int) -> RowMap:
-    """The mask read's map: cell int32 [P, N] (each point's cell in its
-    proposal's grid of ``cells``) over the rows p · cells + cell."""
-    p = cell.shape[0]
+def mask_read_map_reference(cell: torch.Tensor, cells: int,
+                            keep: Optional[torch.Tensor] = None) -> MaskMap:
+    """The plain version of the mask read's map: cell int32 [P, N] (each
+    point's cell in its proposal's grid of ``cells``) over the rows
+    p · cells + cell, keep bool [P, N] (None: every entry). ``(perm,
+    offsets)`` are :func:`row_map`'s over the keys with an entry that is
+    not kept keyed ``rows``, so it sorts past the last row; ``lanes``
+    uint8, aligned with ``perm``, is each entry's lane in ``index_put_``'s
+    pass over the whole run of its row (kept or not): with f its rank in
+    the run and n the run's length, f mod 32 where f < 32 ⌊n / 32⌋, else
+    :data:`TAIL`. Two device sorts, no host sync."""
+    p, n = cell.shape
+    rows = p * cells
     base = torch.arange(p, dtype=torch.int32, device=cell.device)[:, None] * cells
-    return row_map((cell + base).reshape(-1), p * cells)
+    key = (cell + base).reshape(-1)
+    full_perm, full_off = row_map(key, rows)
+    pos = torch.arange(p * n, dtype=torch.int32, device=cell.device)
+    rank = torch.empty_like(key).index_put_((full_perm.long(),), pos)
+    rank = rank - full_off[key.long()]
+    tail = torch.bitwise_and(full_off.diff(), -32)[key.long()]
+    lane = torch.where(rank < tail, torch.bitwise_and(rank, 31), TAIL).to(torch.uint8)
+    if keep is not None:
+        key = torch.where(keep.reshape(-1), key, rows)
+    perm, offsets = row_map(key, rows)
+    return perm, offsets, lane[perm.long()]
+
+
+def map_unit(p: int, n: int) -> int:
+    """Points of one proposal that a block of the ``mask_read_map`` kernel
+    takes (8 warps, each a contiguous eighth): :data:`MAP_UNIT`, halved while
+    there are fewer than :data:`MAP_UNITS` units and it is above 4096. Each
+    unit zeroes, writes and scans a counter per cell, so a unit of fewer
+    points than a 14³ grid has cells costs more in counters than in points;
+    more units run more blocks at once (config 1: 4096, config 2: 16384)."""
+    unit = MAP_UNIT
+    while unit > 4096 and p * -(-n // unit) < MAP_UNITS:
+        unit //= 2
+    return unit
 
 
 def roi_crop_grad_reference(g: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
@@ -84,14 +127,14 @@ def roi_crop_grad_reference(g: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
 
 def mask_read_grad_reference(g: torch.Tensor, cell: torch.Tensor, cells: int) -> torch.Tensor:
     """The plain version: g [P, N] accumulated by ``index_put_`` into zeros
-    [P, cells] at (p, cell[p, n])."""
+    [P, cells] at (p, cell[p, n]), every entry, kept or not."""
     prow = torch.arange(g.shape[0], device=g.device)[:, None]
     out = torch.zeros((g.shape[0], cells), dtype=g.dtype, device=g.device)
     return out.index_put_((prow, cell.to(torch.int64)), g, accumulate=True)
 
 
 def _check(name: str, tensors: dict, ints: dict) -> None:
-    dev = next(iter(tensors.values())).device
+    dev = next(iter({**tensors, **ints}.values())).device
     if dev.type != "cuda" or any(t.device != dev for t in (*tensors.values(), *ints.values())):
         raise ValueError(f"{name} kernel: {', '.join([*tensors, *ints])} must be on one "
                          "CUDA device")
@@ -143,6 +186,73 @@ class RoICropGradKernel:
         return out
 
 
+class MaskReadMapKernel:
+    """``mask_read_map`` (four kernels: kept counts, cell counts, scan,
+    place; one call of the library) and a count of its calls."""
+
+    def __init__(self):
+        self.launches = 0
+        self.unit = None        # a fixed block size for tests and benchmarks; None: map_unit's
+        self._max_cells = {}
+
+    def load(self):
+        return _LIB.get().mask_read_map
+
+    def max_cells(self, device: torch.device) -> int:
+        """The most cells a mask grid may have on ``device``: the place pass
+        holds three ints a cell in shared memory."""
+        if device.index not in self._max_cells:
+            got = _LIB.get().mask_read_map_max_cells(device.index)
+            if got < 0:
+                raise RuntimeError(f"mask_read_map: CUDA error {-got} reading the card's "
+                                   "shared memory size")
+            self._max_cells[device.index] = got
+        return self._max_cells[device.index]
+
+    def __call__(self, cell: torch.Tensor, cells: int,
+                 keep: Optional[torch.Tensor] = None) -> MaskMap:
+        """cell int32 [P, N], keep bool [P, N] or None (every entry) →
+        (perm int32 [P N], offsets int32 [P cells + 1], lanes uint8 [P N]),
+        equal to :func:`mask_read_map_reference`'s up to ``offsets[-1]``;
+        ``perm`` and ``lanes`` past it are not written."""
+        if keep is None:
+            keep = torch.ones_like(cell, dtype=torch.bool)
+        _check("mask_read_map", {"keep": keep}, {"cell": cell})
+        if cell.dim() != 2 or keep.shape != cell.shape or keep.dtype != torch.bool:
+            raise ValueError(f"mask_read_map: cell {tuple(cell.shape)} must be [P, N] and keep "
+                             f"a bool tensor of its shape, got {(tuple(keep.shape), keep.dtype)}")
+        p, n = cell.shape
+        dev = cell.device
+        if cells > self.max_cells(dev):
+            raise ValueError(f"mask_read_map kernel: a mask grid of {cells} cells needs more "
+                             f"shared memory for its per-cell counters than a block may hold "
+                             f"on this card (at most {self.max_cells(dev)} cells); tiling over "
+                             "cells is not implemented")
+        if p * n >= 2 ** 31 or p * cells >= 2 ** 31 or n >= 2 ** 26:
+            raise ValueError(f"mask_read_map: P {p}, N {n}, cells {cells} too large")
+        unit = self.unit or map_unit(p, n)
+        if unit % 256 or not 256 <= unit <= MAP_UNIT:
+            raise ValueError(f"mask_read_map: unit {unit} must be a multiple of 256 up to "
+                             f"{MAP_UNIT}")
+        perm = torch.empty((p * n,), dtype=torch.int32, device=dev)
+        lanes = torch.empty((p * n,), dtype=torch.uint8, device=dev)
+        offsets = torch.empty((p * cells + 1,), dtype=torch.int32, device=dev)
+        if p * n * cells == 0:
+            return perm, offsets.zero_(), lanes
+        units = -(-n // unit)
+        ws = torch.empty((2 * p * units * cells + p * units + p,), dtype=torch.int32,
+                         device=dev)
+        fn = self.load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(cell.data_ptr(), keep.data_ptr(), p, n, cells, unit, perm.data_ptr(),
+                     lanes.data_ptr(), offsets.data_ptr(), ws.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"mask_read_map kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return perm, offsets, lanes
+
+
 class MaskReadGradKernel:
     """``mask_read_grad`` and a count of its launches."""
 
@@ -152,23 +262,27 @@ class MaskReadGradKernel:
     def load(self):
         return _LIB.get().mask_read_grad
 
-    def __call__(self, g: torch.Tensor, rmap: RowMap, rows: int) -> torch.Tensor:
-        """g bf16 [P, N] (or flat), rmap over ``rows`` rows → bf16 [rows]."""
-        perm, offsets = rmap
-        _check("mask_read_grad", {"g": g}, {"perm": perm, "offsets": offsets})
-        if g.dtype != torch.bfloat16:
-            raise TypeError(f"mask_read_grad kernel takes bfloat16 g, got {g.dtype}")
-        if perm.numel() != g.numel() or offsets.shape != (rows + 1,):
+    def __call__(self, g: torch.Tensor, rmap: MaskMap, rows: int) -> torch.Tensor:
+        """g bf16 [P, N] (or flat), the map of :func:`mask_read_map` over
+        ``rows`` rows → bf16 [rows]."""
+        perm, offsets, lanes = rmap
+        _check("mask_read_grad", {"g": g, "lanes": lanes}, {"perm": perm, "offsets": offsets})
+        if g.dtype != torch.bfloat16 or lanes.dtype != torch.uint8:
+            raise TypeError(f"mask_read_grad kernel takes bfloat16 g and uint8 lanes, got "
+                            f"{g.dtype} and {lanes.dtype}")
+        if (perm.numel() != g.numel() or lanes.numel() != g.numel()
+                or offsets.shape != (rows + 1,)):
             raise ValueError(f"mask_read_grad: g {tuple(g.shape)}, perm {tuple(perm.shape)}, "
-                             f"offsets {tuple(offsets.shape)}, rows {rows}")
+                             f"lanes {tuple(lanes.shape)}, offsets {tuple(offsets.shape)}, "
+                             f"rows {rows}")
         out = torch.empty((rows,), dtype=g.dtype, device=g.device)
         if rows == 0:
             return out
         fn = self.load()
         with torch.cuda.device(g.device):
             stream = torch.cuda.current_stream(g.device).cuda_stream
-            err = fn(g.data_ptr(), perm.data_ptr(), offsets.data_ptr(), out.data_ptr(), rows,
-                     stream)
+            err = fn(g.data_ptr(), perm.data_ptr(), offsets.data_ptr(), lanes.data_ptr(),
+                     out.data_ptr(), rows, stream)
         if err != 0:
             raise RuntimeError(f"mask_read_grad kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -176,7 +290,17 @@ class MaskReadGradKernel:
 
 
 ROI_CROP_GRAD = RoICropGradKernel()
+MASK_READ_MAP = MaskReadMapKernel()
 MASK_READ_GRAD = MaskReadGradKernel()
+
+
+def mask_read_map(cell: torch.Tensor, cells: int,
+                  keep: Optional[torch.Tensor] = None) -> MaskMap:
+    """The mask read's map (:func:`mask_read_map_reference`): the kernel on
+    a CUDA tensor, the plain version on any other."""
+    if cell.device.type == "cuda":
+        return MASK_READ_MAP(cell, cells, keep)
+    return mask_read_map_reference(cell, cells, keep)
 
 
 def roi_crop_grad(g, w, idx, rmap: Optional[RowMap], m: int) -> torch.Tensor:
@@ -186,7 +310,7 @@ def roi_crop_grad(g, w, idx, rmap: Optional[RowMap], m: int) -> torch.Tensor:
     return ROI_CROP_GRAD(g, w, rmap, m)
 
 
-def mask_read_grad(g, cell, rmap: Optional[RowMap], cells: int) -> torch.Tensor:
+def mask_read_grad(g, cell, rmap: Optional[MaskMap], cells: int) -> torch.Tensor:
     """d_mask [P, cells]: the kernel on a CUDA tensor, the plain version on a CPU one."""
     if g.device.type == "cpu":
         return mask_read_grad_reference(g, cell, cells)
@@ -235,23 +359,32 @@ class _MaskRead(torch.autograd.Function):
     """``mask[p, cell[p, n]]``, backward by :func:`mask_read_grad`."""
 
     @staticmethod
-    def forward(ctx, mask, cell, perm, offsets):
-        ctx.save_for_backward(cell, perm, offsets)
+    def forward(ctx, mask, cell, perm, offsets, lanes):
+        ctx.save_for_backward(cell, perm, offsets, lanes)
         ctx.shape = mask.shape
         prow = torch.arange(mask.shape[0], device=mask.device)[:, None]
         return mask.reshape(mask.shape[0], -1)[prow, cell.to(torch.int64)]
 
     @staticmethod
     def backward(ctx, g):
-        cell, perm, offsets = ctx.saved_tensors
+        cell, perm, offsets, lanes = ctx.saved_tensors
         cells = ctx.shape[1:].numel()
-        d = mask_read_grad(g.contiguous(), cell, (perm, offsets), cells)
-        return d.reshape(ctx.shape), None, None, None
+        d = mask_read_grad(g.contiguous(), cell, (perm, offsets, lanes), cells)
+        return d.reshape(ctx.shape), None, None, None, None
 
 
-def mask_read(mask: torch.Tensor, cell: torch.Tensor) -> torch.Tensor:
+def mask_read(mask: torch.Tensor, cell: torch.Tensor,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``mask[p, cell[p, n]]``: mask [P, ...] read at cell int32 [P, N], an
-    index into each proposal's flattened grid."""
+    index into each proposal's flattened grid. Every entry is read.
+
+    ``keep`` (bool [P, N]) names the entries whose cotangent may be other
+    than 0: the backward on the card adds only those, so the caller must
+    give a cotangent of exactly 0 wherever ``keep`` is false (a NaN or an
+    infinity there breaks it: 0 · NaN is not 0). The training loss, which
+    owns the weights, passes the entries it weights (``train/loop.py::
+    compute_losses``: ``mask_weight > 0``). Without ``keep`` every entry is
+    added, as ``index_put_`` adds them."""
     cells = mask.shape[1:].numel()
-    rmap = mask_read_map(cell, cells) if wants_map(mask) else (None, None)
+    rmap = mask_read_map(cell, cells, keep) if wants_map(mask) else (None, None, None)
     return _MaskRead.apply(mask, cell, *rmap)

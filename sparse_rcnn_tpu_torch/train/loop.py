@@ -256,8 +256,11 @@ def compute_losses(cfg: Config, out, scales, gt, row_mask):
         box_l = box_l + bx / len(rpn_scales)
     tt = roi_targets(out["crop_boxes"], out["proposal_mask"], scales[0].coords,
                      scales[0].nvalid, gt, cfg.model)
-    # the mask loss at the actual voxels, through the inference sampling path
-    voxel_mask_logits, _ = paint_instance_masks(out, scales, masked=False)
+    # the mask loss at the actual voxels, through the inference sampling path;
+    # its cotangent is 0 where the loss weights a voxel by 0, so the read's
+    # backward adds only the weighted entries
+    voxel_mask_logits, _ = paint_instance_masks(out, scales, masked=False,
+                                                keep=tt.mask_weight > 0)
     parts = {
         "rpn_obj": obj_l,
         "rpn_box": box_l,

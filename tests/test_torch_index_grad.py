@@ -8,10 +8,20 @@ their plain versions, against the JAX package; their maps against numpy.
   ran before (``feats[safe] * live * w`` summed over corners; the 4-index
   bf16 read), with autograd's own backward of those ops;
 - each map's permutation and offsets exactly a numpy stable argsort, dead
-  corners out;
-- the mask loss's cotangent is exactly 0 at points outside a box, so a sum
-  that leaves them out is the same sum (on the card every entry stays: see
-  ``csrc/index_grad.cu``);
+  corners out; the mask map with ``keep`` holds the kept entries only, the
+  others past ``offsets[rows]``, and gives each kept entry its lane in
+  ``index_put_``'s pass over the whole run (an all-outside proposal, a long
+  run inside one cell);
+- the mask loss's cotangent is exactly 0 wherever it weights a point by 0
+  (outside a box, a slot whose box holds no point), so a sum that leaves
+  them out is the same
+  sum: the mask kernel's order over the map with ``keep`` (emulated in
+  numpy float32) is bit-equal to CUDA ``index_put_``'s over every entry
+  (emulated the same way) on the train path's real inputs, and a sum over
+  the kept entries alone in ``index_put_``'s pattern is not, in general;
+  the training loss passes its weights as ``keep``, and the painter hands
+  them to each scene's read;
+- ``mask_read`` without ``keep`` reads and differentiates as before;
 - a forward under ``torch.no_grad()``, or on the CPU, builds no map; the
   kernels' wrappers refuse CPU tensors.
 
@@ -19,6 +29,8 @@ Tolerances: f32 gradients 1e-5 (sums of a few products in another order);
 bf16 1e-2 of the largest entry (each package rounds each product and its
 sums to bf16 at other places: a few bf16 ulps of 2^-8).
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +43,7 @@ from sparse_rcnn_tpu.ops import roi as JRoi
 from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.models import detector as PDet
 from sparse_rcnn_tpu_torch.models import heads as PHd
+from sparse_rcnn_tpu_torch.models.targets import roi_targets
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
 from sparse_rcnn_tpu_torch.ops import roi as PRoi
 from sparse_rcnn_tpu_torch.train import loop as TL
@@ -204,33 +217,149 @@ def test_roi_crop_map_matches_numpy(rng, case):
     assert offsets[-1] == live and (idx.ravel()[perm[live:].numpy()] < 0).all()
 
 
+def numpy_lanes(key, rows):
+    """Each entry's lane in CUDA ``index_put_``'s pass over its row's whole
+    run: its rank f in the run (stable), f mod 32 where f < 32 floor(n / 32),
+    else ``IG.TAIL``."""
+    order, off = numpy_map(key, rows)
+    rank = np.empty_like(key)
+    rank[order] = np.arange(key.size) - off[key[order]]
+    tail = np.diff(off)[key] // 32 * 32
+    return np.where(rank < tail, rank % 32, IG.TAIL)
+
+
 def test_mask_read_map_matches_numpy(rng):
     p, cells, n = 5, 27, 400
     cell = rng.integers(0, cells, (p, n)).astype(np.int32)
     cell[1] = 0                                  # one proposal into one cell
     cell[2, :300] = cells - 1                    # a long run on its border cell
-    perm, offsets = IG.mask_read_map(T(cell), cells)
-    want_perm, want_off = numpy_map((cell + np.arange(p)[:, None] * cells).ravel(), p * cells)
+    perm, offsets, lanes = IG.mask_read_map(T(cell), cells)
+    key = (cell + np.arange(p)[:, None] * cells).ravel()
+    want_perm, want_off = numpy_map(key, p * cells)
     np.testing.assert_array_equal(perm.numpy(), want_perm)
     np.testing.assert_array_equal(offsets.numpy(), want_off)
     assert offsets[-1] == p * n
+    assert lanes.dtype == torch.uint8
+    np.testing.assert_array_equal(lanes.numpy(), numpy_lanes(key, p * cells)[want_perm])
+
+
+def mask_map_case(rng, case, p=6, cells=27, n=500):
+    """(cell, keep) of a mask read: random cells, about 30 % of the points
+    kept; ``all_outside`` keeps no point of proposal 1 (a box that holds no
+    point; its points all on one border cell); ``long_inside_run`` keeps 300
+    points of proposal 2 in one cell, among outside points on the same
+    cell."""
+    cell = rng.integers(0, cells, (p, n)).astype(np.int32)
+    keep = rng.random((p, n)) < 0.3
+    if case == "all_outside":
+        keep[1] = False
+        cell[1] = cells - 1
+    elif case == "long_inside_run":
+        cell[2, :450] = 13
+        keep[2] = False
+        keep[2, rng.choice(450, 300, replace=False)] = True
+    return cell, keep
+
+
+@pytest.mark.parametrize("case", ["random", "all_outside", "long_inside_run"])
+def test_mask_read_map_with_keep_matches_numpy(rng, case):
+    cell, keep = mask_map_case(rng, case)
+    p, n = cell.shape
+    cells, rows = 27, cell.shape[0] * 27
+    perm, offsets, lanes = IG.mask_read_map(T(cell), cells, T(keep))
+    key = (cell + np.arange(p)[:, None] * cells).ravel()
+    want_perm, want_off = numpy_map(np.where(keep.ravel(), key, rows), rows)
+    np.testing.assert_array_equal(perm.numpy(), want_perm)
+    np.testing.assert_array_equal(offsets.numpy(), want_off)
+    kept = int(keep.sum())
+    assert offsets[-1] == kept and not keep.ravel()[perm[kept:].numpy()].any()
+    np.testing.assert_array_equal(lanes[:kept].numpy(), numpy_lanes(key, rows)[want_perm[:kept]])
+    if case == "all_outside":
+        assert (offsets[cells:2 * cells + 1] == offsets[cells]).all()
+    elif case == "long_inside_run":
+        assert offsets.diff().max() == 300 and (lanes[:kept] < IG.TAIL).any()
+
+
+def run_sum(v, lanes):
+    """A run's f32 sum as CUDA ``index_put_`` adds it (``csrc/index_grad.cu``):
+    lane l adds the values whose lane is l, in order, a shuffle-down tree
+    sums the 32 lanes into lane 0, which adds the tail (lane ``IG.TAIL``) in
+    order."""
+    acc = np.zeros(32, np.float32)
+    for x, l in zip(v, lanes):
+        if l < IG.TAIL:
+            acc[l] = np.float32(acc[l] + x)
+    for off in (16, 8, 4, 2, 1):
+        acc[:off] = (acc[:off] + acc[off:2 * off]).astype(np.float32)
+    total = acc[0]
+    for x, l in zip(v, lanes):
+        if l == IG.TAIL:
+            total = np.float32(total + x)
+    return total
+
+
+def bf16_bits(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).view(torch.int16)
+
+
+def index_put_order(g, key, rows):
+    """CUDA ``index_put_(accumulate=True)`` of g (float32 holding bf16
+    values) at the rows ``key`` into zeros, every entry, as bf16 bits."""
+    order, off = numpy_map(key, rows)
+    lanes = numpy_lanes(key, rows)
+    out = np.zeros(rows, np.float32)
+    for r in np.flatnonzero(np.diff(off)):
+        e = order[off[r]:off[r + 1]]
+        out[r] = run_sum(g[e], lanes[e])
+    return bf16_bits(out)
+
+
+def kernel_order(g, rmap, rows):
+    """The ``mask_read_grad`` kernel's sum over a map, as bf16 bits."""
+    perm, offsets, lanes = (t.numpy() for t in rmap)
+    out = np.zeros(rows, np.float32)
+    for r in range(rows):
+        i = slice(offsets[r], offsets[r + 1])
+        out[r] = run_sum(g[perm[i]], lanes[i])
+    return bf16_bits(out)
+
+
+def test_lanes_keep_index_put_grouping():
+    """Why the mask map carries lanes: one row of 64 entries whose kept
+    entries (ranks 1, 2 and 3: lanes 1, 2, 3) are a, -a and a small c.
+    ``index_put_`` over the whole run adds them as b + (a + c) (the tree
+    pairs lanes 0-2 and 1-3 first); the kept entries alone, fewer than 32,
+    would be a sequential (a + b) + c = c, which rounds to another bf16."""
+    a, c = np.float32(0.11376953), np.float32(-8.08388e-07)   # both bf16 values
+    g = np.zeros((1, 64), np.float32)
+    g[0, 1:4] = a, -a, c
+    keep = g != 0
+    cell = np.zeros((1, 64), np.int32)
+    want = index_put_order(g.ravel(), cell.ravel(), 1)
+    rmap = IG.mask_read_map(T(cell), 1, T(keep))
+    assert torch.equal(kernel_order(g.ravel(), rmap, 1), want)
+    alone = np.float32(np.float32(a - a) + c)
+    assert not torch.equal(bf16_bits([alone]), want)
 
 
 def test_outside_box_entries_carry_zero_cotangent():
     """The premise under which the mask read's backward may leave a point
-    out: ``models/losses.py::masked_mean`` weights the mask loss by 0 at
-    points outside the box, so their cotangent is exactly 0; the plain sum
-    with them left out is then the same bit for bit."""
+    out: the training loss passes as ``keep`` the entries it weights
+    (``mask_weight > 0``: inside the box, live, a foreground proposal), and
+    ``models/losses.py::masked_mean`` weights every other one by 0, so its
+    cotangent is exactly 0 (at points outside a box, and in a slot whose box
+    holds no point); the plain sum with them left out is then the same bit
+    for bit."""
     cfg = load_config(overrides=OVERRIDES)
     model = TL.build_model(cfg, "cpu", torch.Generator().manual_seed(0))
     batch = TL.to_device(_batch(), "cpu", TL.TRAIN_KEYS)
     reads = []
     real = PDet.sample_mask_at_positions
 
-    def record(ml, boxes, pos):
-        logits, inside = real(ml, boxes, pos)
+    def record(ml, boxes, pos, keep=None):
+        logits, inside = real(ml, boxes, pos, keep)
         logits.retain_grad()
-        reads.append((ml, boxes, pos, logits, inside))
+        reads.append((ml, boxes, pos, logits, inside, keep))
         return logits, inside
 
     st, _, scales, gt, _ = TL.prepare_inputs(cfg, batch)
@@ -243,11 +372,17 @@ def test_outside_box_entries_carry_zero_cotangent():
         PDet.sample_mask_at_positions = real
     total.backward()
     assert len(reads) == cfg.data.batch_size
+    tt = roi_targets(out["crop_boxes"], out["proposal_mask"], scales[0].coords,
+                        scales[0].nvalid, gt, cfg.model)
+    keep = torch.stack([r[5] for r in reads])
+    assert torch.equal(keep, tt.mask_weight > 0)
     g_all = torch.stack([r[3].grad for r in reads])
     inside = torch.stack([r[4] for r in reads])
-    assert (~inside).any() and g_all[inside].abs().max() > 0
-    assert torch.equal(g_all[~inside], torch.zeros_like(g_all[~inside]))
-    for ml, boxes, pos, logits, ins in reads:
+    assert (~inside).any() and not keep[~inside].any() and g_all[keep].abs().max() > 0
+    assert torch.equal(g_all[~keep], torch.zeros_like(g_all[~keep]))
+    empty = ~inside.any(-1)                      # slots whose box holds no point
+    assert empty.any() and torch.equal(g_all[empty], torch.zeros_like(g_all[empty]))
+    for ml, boxes, pos, logits, _, kp in reads:
         g = logits.grad.to(torch.bfloat16)
         grid = ml.shape[-1]
         cell = torch.stack([torch.clamp((pos[None, :, a] - boxes[:, a:a + 1])
@@ -257,8 +392,15 @@ def test_outside_box_entries_carry_zero_cotangent():
         cell = (cell[0] * grid + cell[1]) * grid + cell[2]
         with TL.deterministic_on_cpu("cpu"):
             every = IG.mask_read_grad_reference(g, cell, grid ** 3)
-            left_out = IG.mask_read_grad_reference(torch.where(ins, g, 0), cell, grid ** 3)
+            left_out = IG.mask_read_grad_reference(torch.where(kp, g, 0), cell, grid ** 3)
         assert torch.equal(every, left_out)
+        # the card's order: the kernel over the map of the kept points is
+        # CUDA index_put_ over every point, bit for bit
+        rows = cell.shape[0] * grid ** 3
+        key = (cell + torch.arange(cell.shape[0])[:, None] * grid ** 3).reshape(-1).numpy()
+        gf = g.float().reshape(-1).numpy()
+        rmap = IG.mask_read_map(cell, grid ** 3, kp)
+        assert torch.equal(kernel_order(gf, rmap, rows), index_put_order(gf, key, rows))
 
 
 def test_no_map_without_a_gradient_or_on_the_cpu(rng, monkeypatch):
@@ -291,10 +433,56 @@ def test_no_map_without_a_gradient_or_on_the_cpu(rng, monkeypatch):
 def test_kernel_wrappers_refuse_cpu_tensors():
     g = torch.zeros(10, 4)
     rmap = IG.roi_crop_map(torch.full((8, 10), -1, dtype=torch.int32), 5)
-    before = (IG.ROI_CROP_GRAD.launches, IG.MASK_READ_GRAD.launches)
+    kernels = (IG.ROI_CROP_GRAD, IG.MASK_READ_MAP, IG.MASK_READ_GRAD)
+    before = [k.launches for k in kernels]
     with pytest.raises(ValueError):
         IG.ROI_CROP_GRAD(g, torch.zeros(8, 10), rmap, 5)
+    cell = torch.zeros(2, 5, dtype=torch.int32)
+    for keep in (torch.ones(2, 5, dtype=torch.bool), None):
+        with pytest.raises(ValueError):
+            IG.MASK_READ_MAP(cell, 3, keep)
     with pytest.raises(ValueError):
-        IG.MASK_READ_GRAD(torch.zeros(2, 5, dtype=torch.bfloat16),
-                          IG.mask_read_map(torch.zeros(2, 5, dtype=torch.int32), 3), 6)
-    assert (IG.ROI_CROP_GRAD.launches, IG.MASK_READ_GRAD.launches) == before
+        IG.MASK_READ_GRAD(torch.zeros(2, 5, dtype=torch.bfloat16), IG.mask_read_map(cell, 3), 6)
+    assert [k.launches for k in kernels] == before
+
+
+def test_mask_read_without_keep_as_before(rng, monkeypatch):
+    """``mask_read`` without ``keep``: the same values and CPU gradient as
+    the 4-index read it replaced, and on meta tensors (the card's stand-in)
+    a map of every entry."""
+    ml, boxes, pos, g_out = mask_inputs(rng)
+    p, grid = ml.shape[0], ml.shape[-1]
+    _, inside = PHd.sample_mask_at_positions(T(ml), T(boxes), T(pos))
+    cell = torch.from_numpy(rng.integers(0, grid ** 3, (p, pos.shape[0])).astype(np.int32))
+    grads = []
+    for keep in (None, inside):
+        m = T(ml).to(torch.bfloat16).requires_grad_(True)
+        out = IG.mask_read(m, cell, keep)
+        out.backward(T(g_out).to(torch.bfloat16))
+        grads.append((out.detach(), m.grad))
+    m = T(ml).to(torch.bfloat16)
+    want = m.reshape(p, -1)[torch.arange(p)[:, None], cell.long()]
+    assert torch.equal(grads[0][0], want) and torch.equal(grads[1][0], want)
+    assert torch.equal(grads[0][1], grads[1][1])    # the CPU adds every entry either way
+    calls = []
+    real = IG.mask_read_map
+    monkeypatch.setattr(IG, "mask_read_map", lambda *a: calls.append(a) or real(*a))
+    IG.mask_read(m.to("meta").requires_grad_(True), cell.to("meta"))
+    assert len(calls) == 1 and calls[0][2] is None
+
+
+def test_painter_passes_keep_to_the_read(rng, monkeypatch):
+    """``paint_instance_masks`` hands each scene's ``keep`` to its read (no
+    ``keep``: every entry), and the logits do not depend on it."""
+    ml, boxes, pos, _ = mask_inputs(rng)
+    keep = torch.from_numpy(rng.random((2, ml.shape[0], pos.shape[0])) < 0.5)
+    out = {"mask_logits": T(np.stack([ml, ml[::-1]])),
+           "crop_boxes": T(np.stack([boxes, boxes[::-1]]))}
+    scales = [SimpleNamespace(coords=T(np.stack([pos, pos]) - 0.5))]    # centres at pos
+    calls = []
+    real = IG.mask_read
+    monkeypatch.setattr(IG, "mask_read", lambda m, c, k=None: calls.append(k) or real(m, c, k))
+    got = [PDet.paint_instance_masks(out, scales, masked=False, keep=k) for k in (None, keep)]
+    assert calls[:2] == [None, None]
+    assert torch.equal(calls[2], keep[0]) and torch.equal(calls[3], keep[1])
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1])

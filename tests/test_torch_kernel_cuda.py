@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: the
 sparse conv's (forward, dgrad, wgrad), the gather-form backwards of the
-RoI crop and the bf16 mask read (``roi_crop_grad``, ``mask_read_grad``),
-and the optimizer's (``global_sumsq_*``, ``optim_apply``).
+RoI crop and the bf16 mask read (``roi_crop_grad``, ``mask_read_map``,
+``mask_read_grad``), and the optimizer's (``global_sumsq_*``,
+``optim_apply``).
 
 This file imports neither jax nor the JAX package, so that it also runs on a
 machine that has a card and no JAX. ``tests/conftest.py`` imports jax, so
@@ -13,7 +14,9 @@ Without a card every test here skips. Tolerances: f32 1e-5 (TF32 off; the
 kernel sums taps in the plain version's order); bf16 1e-2 (both sum in f32
 and round once to bf16: at most one bf16 ulp, 2^-8 relative). The two
 indexing backwards add each row's entries in the order of CUDA's
-``index_put_``, their plain version, and are held to it bit for bit. The
+``index_put_``, their plain version, and are held to it bit for bit; the
+mask read's map, built per proposal by a kernel, is held to the plain
+stable sort bit for bit, on ``benchmarks/mask_map_cases.py``'s cases. The
 optimizer's kernels repeat their plain versions' float32 operations in
 their order and are held to them bit for bit too (NaN counts as equal to
 NaN), on ``benchmarks/optim_cases.py``'s cases, which ``chip_smoke.py``
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from benchmarks import mask_map_cases as MC
 from benchmarks import optim_cases as OC
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
 from sparse_rcnn_tpu_torch.ops import optim as OPT
@@ -365,6 +369,42 @@ def test_cuda_mask_read_grad_bit_equal_to_index_put(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", MC.MASK_MAP_CASES, ids=lambda c: c[0])
+def test_cuda_mask_read_map_and_grad_bit_equal_to_plain(cuda_device, case):
+    """The map kernel's (perm, offsets, lanes) equal the plain stable sort's
+    (up to the kept entries), and ``mask_read_grad`` over that map equals
+    ``index_put_`` over every entry, bits of ±0 included; each identical
+    across two runs, one count a launch."""
+    name, p, grid, n, kind = case
+    g, cell, keep, cells = MC.mask_case(p, grid, n, kind, cuda_device, 7)
+    before = (IG.MASK_READ_MAP.launches, IG.MASK_READ_GRAD.launches)
+    rec = MC.check_mask_case(g, cell, keep, cells, MC.FORCED_UNIT.get(kind))
+    torch.cuda.synchronize()
+    assert (IG.MASK_READ_MAP.launches, IG.MASK_READ_GRAD.launches) == (before[0] + 2,
+                                                                        before[1] + 2)
+    assert rec["map_bit_equal"] and rec["map_bit_identical"], rec
+    assert rec["bit_equal"] and rec["bit_identical"], rec
+    if kind == "all_outside":
+        assert rec["kept"] == 0
+    elif kind in ("long_inside_run", "full_unit"):
+        assert rec["longest_kept_row"] > 32 * 32 and rec["kept_in_lanes"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_mask_read_map_refuses_cpu_tensors_and_big_grids(cuda_device):
+    cell = torch.zeros((2, 40), dtype=torch.int32)
+    before = IG.MASK_READ_MAP.launches
+    with pytest.raises(ValueError):
+        IG.MASK_READ_MAP(cell, 27)
+    with pytest.raises(ValueError):
+        IG.MASK_READ_MAP(cell.to(cuda_device), 27, torch.ones((2, 40), dtype=torch.bool))
+    big = IG.MASK_READ_MAP.max_cells(cell.to(cuda_device).device) + 1
+    with pytest.raises(ValueError, match="tiling over cells"):
+        IG.MASK_READ_MAP(cell.to(cuda_device), big)
+    assert IG.MASK_READ_MAP.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_cuda_index_reads_backward_through_the_kernels(cuda_device, dt):
     """The autograd Functions on the card: one launch each, gradients equal
@@ -408,6 +448,22 @@ def test_cuda_index_reads_backward_through_the_kernels(cuda_device, dt):
         assert IG.MASK_READ_GRAD.launches == before + (0 if composite else 1)
         grads.append((out.detach(), m.grad))
     assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+
+    # with keep, and a cotangent of 0 where it is false: the map of the kept
+    # entries, one launch of each kernel, the composite's gradient
+    keep = torch.from_numpy(rng.random((3, 500)) < 0.3).to(cuda_device)
+    m = mask.clone().requires_grad_(True)
+    before = (IG.MASK_READ_MAP.launches, IG.MASK_READ_GRAD.launches)
+    out = IG.mask_read(m.to(torch.bfloat16), cell, keep)
+    out.to(m.dtype).backward(torch.where(keep, ct, 0.0).to(m.dtype))
+    torch.cuda.synchronize()
+    assert (IG.MASK_READ_MAP.launches, IG.MASK_READ_GRAD.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    c = mask.clone().requires_grad_(True)
+    bf = c.to(torch.bfloat16)
+    want = bf.reshape(3, -1)[torch.arange(3, device=cuda_device)[:, None], cell.long()]
+    want.to(c.dtype).backward(torch.where(keep, ct, 0.0).to(c.dtype))
+    assert torch.equal(out.detach(), want.detach()) and torch.equal(m.grad, c.grad)
 
 
 @pytest.mark.cuda

@@ -8,17 +8,28 @@
   are a one-worker Loader's;
 - an eval pass: ordered, the last batch wrap-padded, as JAX's;
 - the counters, ``close`` and a worker's exception reaching the consumer;
-- a host-voxelized train step equals a device-voxelized one, and JAX's
-  host-voxelized step (loss parts within rtol 1e-5: the f32 sums of one
-  step in other orders, as ``tests/test_torch_train.py`` holds them);
+- a host-voxelized train step equals a device-voxelized one, and the loss
+  parts of JAX's host-voxelized forward in train mode (within rtol 1e-5:
+  the f32 sums of one step in other orders, as ``tests/test_torch_train.py``
+  holds them);
 - ``data.host_voxelize`` with a library that does not build raises.
 
 Every Loader is closed in a ``finally`` (or a ``with``), and every test runs
 under its own time limit (``LIMIT_S``, an alarm in the test's thread), so no
-worker thread can hang the suite.
+worker thread can hang the suite. The alarm raises only where the main
+thread runs the tests' code or the Loader's (``alarm``): an exception
+raised at whatever line runs when the signal comes can land inside JAX,
+torch or a gc callback, which swallow it or are left half-done for the
+next test of the same worker. After ``GRACE_S`` more seconds it raises
+wherever the main thread is, so a test spinning in a library still ends.
+A test that runs past its limit fails, in that test, either way.
 """
 
+import contextlib
+import gc
+import os
 import signal
+import sysconfig
 import time
 
 import jax
@@ -29,17 +40,23 @@ import torch
 
 from sparse_rcnn_tpu.config import load_config as jax_load_config
 from sparse_rcnn_tpu.data import pipeline as JP
+from sparse_rcnn_tpu.train import loop as JTL
 from sparse_rcnn_tpu_torch import native
 from sparse_rcnn_tpu_torch.config import load_config
-from sparse_rcnn_tpu_torch.data import synthetic
+from sparse_rcnn_tpu_torch.data import pipeline, synthetic
 from sparse_rcnn_tpu_torch.data.pipeline import (VOXEL_KEYS, Loader, collate, device_batches,
                                                  host_voxelize_scene)
 from sparse_rcnn_tpu_torch.models.transfer import from_flax
 from sparse_rcnn_tpu_torch.train import loop as TL
 from tests.test_torch_dense_tail import jax_variables
-from tests.test_torch_pool_train import _jax_step_cfg
 
 LIMIT_S = 60
+RETRY_S = 0.05          # the alarm's next look when it finds a library's code running
+GRACE_S = 10            # past its limit, the alarm raises wherever the main thread is
+# where the alarm may raise: the tests' files and the Loader's
+SAFE = (os.path.dirname(os.path.abspath(__file__)) + os.sep,
+        os.path.abspath(pipeline.__file__))
+STDLIB = sysconfig.get_paths()["stdlib"] + os.sep
 DATA = {"num_points": 512, "voxel_capacity": 256, "batch_size": 2,
         "voxel_size": [0.2, 0.2, 0.2], "val_scenes": 3, "num_scenes": 5}
 # the config of tests/parity/test_native.py::test_host_voxelize_pipeline_matches_device
@@ -49,17 +66,59 @@ MODEL = {"backbone": {"widths": [8, 16], "blocks_per_scale": 1},
          "num_classes": 3, "max_instances": 6}
 
 
-@pytest.fixture(autouse=True)
-def time_limit():
+def safe_to_raise(frame) -> bool:
+    """Whether an exception raised at ``frame`` lands in the tests' code or
+    the Loader's (standard-library frames they called, such as a queue's
+    wait, skipped), and not in a library's."""
+    while frame is not None and frame.f_code.co_filename.startswith(STDLIB):
+        frame = frame.f_back
+    return frame is not None and frame.f_code.co_filename.startswith(SAFE)
+
+
+@contextlib.contextmanager
+def alarm(limit_s: float, retry_s: float = RETRY_S, grace_s: float = GRACE_S):
+    """Raise ``TimeoutError`` in the block once it has run ``limit_s``
+    seconds, at the first moment after that when the main thread runs the
+    tests' or the Loader's code (looking again every ``retry_s``), or
+    wherever it is once ``grace_s`` more seconds have passed; if the block
+    ends first, raise at its end. Yields the alarm's record: ``deferred``,
+    the files it found running instead. An alarm around the block (the
+    test's own) is re-armed with its time left."""
+    state = {"due": False, "raised": False, "deferred": []}
+
     def expire(signum, frame):
-        raise TimeoutError(f"test ran past its {LIMIT_S} s limit")
+        now = time.monotonic()
+        if not state["due"]:
+            state["due"], state["due_at"] = True, now
+        late = now - state["due_at"] >= grace_s
+        if late or safe_to_raise(frame):
+            state["raised"] = True
+            where = "" if not late else (f" (raised in {frame.f_code.co_filename if frame else '?'}"
+                                         f" after {grace_s} s more)")
+            raise TimeoutError(f"test ran past its {limit_s} s limit{where}")
+        state["deferred"].append(frame.f_code.co_filename if frame else "?")
+        signal.setitimer(signal.ITIMER_REAL, retry_s)
+
+    t0 = time.monotonic()
     old = signal.signal(signal.SIGALRM, expire)
-    signal.setitimer(signal.ITIMER_REAL, LIMIT_S)
+    outer_left = signal.setitimer(signal.ITIMER_REAL, limit_s)[0]
     try:
-        yield
+        yield state
     finally:
         signal.setitimer(signal.ITIMER_REAL, 0)
         signal.signal(signal.SIGALRM, old)
+        if outer_left:
+            signal.setitimer(signal.ITIMER_REAL,
+                             max(outer_left - (time.monotonic() - t0), 1e-3))
+    if state["due"] and not state["raised"]:
+        raise TimeoutError(f"test ran past its {limit_s} s limit; the alarm found only "
+                           f"libraries running: {sorted(set(state['deferred']))[:3]}")
+
+
+@pytest.fixture(autouse=True)
+def time_limit():
+    with alarm(LIMIT_S):
+        yield
 
 
 def _ov(**data):
@@ -184,11 +243,28 @@ def test_host_voxelize_build_failure_raises(tmp_path, monkeypatch):
     Loader(load_config(overrides=_ov()), threads=False)      # no host voxelizer: no build
 
 
+def _jax_loss_parts(ov):
+    """The loss parts of JAX's forward in train mode for the config ``ov``:
+    ``tests/test_torch_pool_train.py::_jax_step_cfg`` without the gradient."""
+    cfg = jax_load_config(overrides=ov)
+    model = JTL.build_model(cfg)
+
+    @jax.jit
+    def parts(params, batch_stats, batch):
+        st, _, scales, gt, _ = JTL.prepare_inputs(cfg, batch)
+        out, _ = model.apply({"params": params, "batch_stats": batch_stats}, st.feats, scales,
+                             train=True, gt_boxes=gt.boxes, gt_boxes_valid=gt.valid,
+                             mutable=["batch_stats"])
+        return JTL.compute_losses(cfg, out, scales, gt, st.row_mask)[1]
+    return parts
+
+
 def test_host_voxelized_step_matches_device_and_jax():
     """One train step from random flax weights on two synthetic scenes: the
     port's host-voxelized step against its device-voxelized step (integer
     tables and every metric) and against the loss parts of JAX's
-    host-voxelized ``train_step``."""
+    host-voxelized forward in train mode (the parts its train step reports;
+    no gradient, so that JAX compiles the forward alone)."""
     ov = _ov(host_voxelize=True)
     cfg, jcfg = load_config(overrides=ov), jax_load_config(overrides=ov)
     scenes = [synthetic.generate_scene(77 + i, num_points=512, num_instances=2, num_classes=3)
@@ -201,7 +277,7 @@ def test_host_voxelized_step_matches_device_and_jax():
     params, stats = jax_variables(ov, {k: jnp.asarray(v) for k, v in device_batch.items()},
                                   np.random.default_rng(2))
     weights = from_flax(params, stats)
-    _, jm, _, _ = jax.device_get(_jax_step_cfg(ov)(params, stats, {
+    jm = jax.device_get(_jax_loss_parts(ov)(params, stats, {
         k: jnp.asarray(v) for k, v in jhost.items()}))
 
     metrics, tables = {}, {}
@@ -224,3 +300,68 @@ def test_host_voxelized_step_matches_device_and_jax():
     for k in ("voxel_overflow", "hierarchy_overflow", "voxels_per_scene", "total"):
         np.testing.assert_allclose(float(metrics["host"][k]), float(metrics["device"][k]),
                                    rtol=1e-5, err_msg=k)
+
+
+SPIN = """import time
+def spin(s):
+    end, n = time.monotonic() + s, 0
+    while time.monotonic() < end:
+        n += 1
+    return n
+def callback(phase, info):
+    if phase == "start":
+        spin(0.3)
+"""
+
+
+def library():
+    """Functions whose code lies outside the tests and the Loader, as JAX's
+    and torch's does."""
+    ns = {}
+    exec(compile(SPIN, os.path.join(os.sep, "library", "spin.py"), "exec"), ns)
+    return ns
+
+
+def test_alarm_raises_in_the_tests_code_not_in_a_library():
+    lib = library()
+    spun = None
+    with pytest.raises(TimeoutError, match="past its 0.1 s limit$"):
+        with alarm(0.1) as state:
+            spun = lib["spin"](0.4)           # the alarm comes in here and waits
+            time.sleep(5)                     # ... and raises here
+    assert spun and state["deferred"]
+    assert signal.getitimer(signal.ITIMER_REAL)[0] > 0     # the test's own limit runs on
+
+
+def test_alarm_in_a_gc_callback_is_not_swallowed():
+    """Raised inside a gc callback (JAX registers one), the exception would
+    be reported as unraisable and dropped, and the test would pass past
+    its limit."""
+    lib = library()
+    gc.callbacks.append(lib["callback"])
+    try:
+        with pytest.raises(TimeoutError, match="past its 0.1 s limit$"):
+            with alarm(0.1) as state:
+                gc.collect()
+                time.sleep(5)
+    finally:
+        gc.callbacks.remove(lib["callback"])
+    assert os.path.join(os.sep, "library", "spin.py") in state["deferred"]
+
+
+def test_alarm_that_finds_only_a_library_fails_at_the_end():
+    lib = library()
+    with pytest.raises(TimeoutError, match="found only libraries running"):
+        with alarm(0.1, retry_s=30):
+            lib["spin"](0.3)
+
+
+def test_alarm_raises_in_a_library_after_its_grace():
+    """A test that spins in a library past its limit and the grace is
+    still stopped, where it spins."""
+    lib = library()
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match=r"raised in .*spin\.py after 0.3 s more"):
+        with alarm(0.1, grace_s=0.3) as state:
+            lib["spin"](30)
+    assert time.monotonic() - t0 < 5 and state["deferred"]
