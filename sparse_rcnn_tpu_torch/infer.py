@@ -33,6 +33,7 @@ from .data.pipeline import Loader, device_batches
 from .train import checkpoint as CK
 from .train import loop as TL
 from .train.evaluate import fetch_eval_outputs, postprocess_scene
+from .utils.profiling import span
 
 
 def parse_overrides(pairs):
@@ -78,14 +79,17 @@ def to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 def scene_result(out: Dict[str, np.ndarray], b: int, num_classes: int):
     """Scene ``b`` of host eval-step outputs → (instance int32[N], scores [P],
     pred_cls [P], pmask [P]). Proposals paint in descending score order and
-    each point keeps the rank of the first that claims it (-1 = none)."""
-    masks, scores, pred_cls, pmask = postprocess_scene(out, b, num_classes)
-    inst = np.full(masks.shape[-1], -1, np.int32)
-    for rank, p in enumerate(np.argsort(-scores)):
-        if pmask[p]:
-            sel = masks[p] & (inst < 0)
-            inst[sel] = rank
-    return inst, scores, pred_cls, pmask
+    each point keeps the rank of the first that claims it (-1 = none).
+    Spans: ``scene_result``, with ``postprocess`` and ``paint`` under it."""
+    with span("scene_result"):
+        masks, scores, pred_cls, pmask = postprocess_scene(out, b, num_classes)
+        with span("paint"):
+            inst = np.full(masks.shape[-1], -1, np.int32)
+            for rank, p in enumerate(np.argsort(-scores)):
+                if pmask[p]:
+                    sel = masks[p] & (inst < 0)
+                    inst[sel] = rank
+        return inst, scores, pred_cls, pmask
 
 
 def main(argv=None):

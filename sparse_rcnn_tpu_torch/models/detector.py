@@ -17,6 +17,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import roi as roi_ops
 from ..ops.hierarchy import ScaleSet
+from ..utils.profiling import span
 from .heads import RoIHead, SemanticHead, sample_mask_at_positions
 from .rpn import RPNHead, select_proposals
 from .unet import SparseUNet
@@ -55,48 +56,56 @@ class SparseRCNN(nn.Module):
                 generators: Optional[Sequence[torch.Generator]] = None
                 ) -> Dict[str, torch.Tensor]:
         """``generators``: the sources of the backbone's dropout masks in
-        training mode, one per scene."""
-        outs = self.backbone(feats, scales, generators)
-        return self.heads(outs, scales, gt_boxes, gt_boxes_valid)
+        training mode, one per scene. Spans: ``forward``, with ``backbone``
+        and the stages of :meth:`heads` under it."""
+        with span("forward"):
+            with span("backbone"):
+                outs = self.backbone(feats, scales, generators)
+            return self.heads(outs, scales, gt_boxes, gt_boxes_valid)
 
     def heads(self, outs: List[torch.Tensor], scales: List[ScaleSet],
               gt_boxes: Optional[torch.Tensor] = None,
               gt_boxes_valid: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Everything after the backbone, on its per-scale outputs ``outs``.
         ``gt_boxes`` [B, I, 6] and ``gt_boxes_valid`` bool[B, I] are
-        injected into the proposals in training mode only."""
+        injected into the proposals in training mode only. Spans: ``rpn``,
+        ``select`` (top-k, NMS and the injection), ``roi_crop``, ``roi_head``."""
         cfg = self.cfg
         rpn_obj, rpn_boxes, rpn_deltas, rpn_masks = [], [], [], []
-        for s in self.rpn_scales:
-            head = getattr(self, "rpn" if s == self.rpn_scales[0] else f"rpn_s{s}")
-            smask = scales[s].row_mask
-            obj_s, boxes_s, deltas_s = head(outs[s], scales[s].coords, smask)
-            rpn_obj.append(obj_s)
-            rpn_boxes.append(boxes_s)
-            rpn_deltas.append(deltas_s)
-            rpn_masks.append(smask)
+        with span("rpn"):
+            for s in self.rpn_scales:
+                head = getattr(self, "rpn" if s == self.rpn_scales[0] else f"rpn_s{s}")
+                smask = scales[s].row_mask
+                obj_s, boxes_s, deltas_s = head(outs[s], scales[s].coords, smask)
+                rpn_obj.append(obj_s)
+                rpn_boxes.append(boxes_s)
+                rpn_deltas.append(deltas_s)
+                rpn_masks.append(smask)
 
-        # pool candidates across scales before top-k + NMS
-        props, scores, pmask = select_proposals(
-            torch.cat(rpn_obj, 1), torch.cat(rpn_boxes, 1),
-            torch.cat(rpn_masks, 1), cfg.rpn)
-        if self.training and gt_boxes is not None:
-            # Fast-R-CNN-style GT injection: overwrite the lowest-scored
-            # proposal slots with GT boxes so the RoI heads see foreground
-            # from step 0
-            p = props.shape[1]
-            n_inject = min(gt_boxes.shape[1], p // 2)
-            gtb, gtv = gt_boxes[:, :n_inject], gt_boxes_valid[:, :n_inject]
-            keep = p - n_inject
-            props = torch.cat([props[:, :keep], gtb], dim=1)
-            scores = torch.cat([scores[:, :keep], torch.where(gtv, 0.0, -1e9)], dim=1)
-            pmask = torch.cat([pmask[:, :keep], gtv], dim=1)
-        crop_boxes = expand_boxes(props, cfg.roi.expand)
-        roi_feats = torch.stack([
-            roi_ops.roi_crop(c, n, f, bx, cfg.roi.grid_size, stride=1)
-            for c, n, f, bx in zip(scales[0].coords, scales[0].nvalid, outs[0],
-                                   crop_boxes)])
-        cls_logits, mask_logits = self.roi_head(roi_feats)
+        with span("select"):
+            # pool candidates across scales before top-k + NMS
+            props, scores, pmask = select_proposals(
+                torch.cat(rpn_obj, 1), torch.cat(rpn_boxes, 1),
+                torch.cat(rpn_masks, 1), cfg.rpn)
+            if self.training and gt_boxes is not None:
+                # Fast-R-CNN-style GT injection: overwrite the lowest-scored
+                # proposal slots with GT boxes so the RoI heads see foreground
+                # from step 0
+                p = props.shape[1]
+                n_inject = min(gt_boxes.shape[1], p // 2)
+                gtb, gtv = gt_boxes[:, :n_inject], gt_boxes_valid[:, :n_inject]
+                keep = p - n_inject
+                props = torch.cat([props[:, :keep], gtb], dim=1)
+                scores = torch.cat([scores[:, :keep], torch.where(gtv, 0.0, -1e9)], dim=1)
+                pmask = torch.cat([pmask[:, :keep], gtv], dim=1)
+        with span("roi_crop"):
+            crop_boxes = expand_boxes(props, cfg.roi.expand)
+            roi_feats = torch.stack([
+                roi_ops.roi_crop(c, n, f, bx, cfg.roi.grid_size, stride=1)
+                for c, n, f, bx in zip(scales[0].coords, scales[0].nvalid, outs[0],
+                                       crop_boxes)])
+        with span("roi_head"):
+            cls_logits, mask_logits = self.roi_head(roi_feats)
         out = {
             "rpn_obj": tuple(rpn_obj),         # each [B, M_s]
             "rpn_deltas": tuple(rpn_deltas),   # each [B, M_s, 6]

@@ -27,7 +27,9 @@ appended to ``--log-file`` and mirrored to ``--tensorboard``:
   voxelizer (``voxelize_s``, ``scenes_voxelized``);
 - ``profile`` with ``--profile``: the path of the ``torch.profiler`` trace
   of the training loop (host operations and the card's kernels and copies;
-  Chrome/Perfetto JSON) written into ``<checkpoint_dir>/profile/``.
+  Chrome/Perfetto JSON) written into ``<checkpoint_dir>/profile/``, and
+  ``stages``, the loop's spans by name (``utils/profiling.py::stage_table``:
+  calls, host total and self ms, and the counters of ``count``).
 
 A ``trainer.pid`` file in ``train.checkpoint_dir`` refuses a second live
 trainer on the same directory; a stale one is reclaimed. On the card, TF32
@@ -66,7 +68,7 @@ from ..infer import parse_overrides, setup_device
 from ..parallel import data_parallel as DP
 from ..parallel.context import World, shard_context
 from ..utils.logging import JsonlLogger
-from ..utils.profiling import StepTimer, maybe_trace
+from ..utils.profiling import StepTimer, maybe_trace, recording, stage_table
 from . import checkpoint as CK
 from . import loop as TL
 from .evaluate import run_eval
@@ -192,7 +194,8 @@ def train(cfg: Config, device: torch.device, args,
     timer = StepTimer(cfg.data.batch_size)
     trace_dir = os.path.join(ckpt_dir, "profile")
     with Loader(cfg, "train", seed=cfg.train.seed, **share) as loader, \
-            maybe_trace(args.profile, trace_dir) as trace:
+            maybe_trace(args.profile, trace_dir) as trace, \
+            (recording() if args.profile else contextlib.nullcontext()) as spans:
         stream = device_batches(loader, device, TL.TRAIN_KEYS)
         while state.step < cfg.train.total_steps:
             _, batch = next(stream)
@@ -222,7 +225,7 @@ def train(cfg: Config, device: torch.device, args,
                 **({} if world is None else {"replay_s": loader.replay_s,
                                              "scenes_replayed": loader.scenes_replayed}))
     if trace is not None:
-        log.log("profile", trace=trace)
+        log.log("profile", trace=trace, stages=stage_table(spans))
     if lead:
         CK.save(mgr, state)
     DP.barrier(world)

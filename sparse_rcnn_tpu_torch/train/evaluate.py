@@ -17,6 +17,7 @@ from ..data.pipeline import device_batches
 from ..parallel import context as DPC
 from ..parallel import data_parallel as DP
 from ..utils.metrics import InstanceAPEvaluator, SemanticMIoUEvaluator
+from ..utils.profiling import count, span
 from . import loop as TL
 
 # eval-step outputs that stay on the device: the [B, P, N] f32 logits
@@ -47,10 +48,12 @@ def fetch_eval_outputs(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     ``gt`` are not fetched: ``point_mask_bits`` carries the same booleans in
     a 32nd of the bytes. Only the logits' point count is kept, as
     ``point_mask_n``, for the unpack. A caller that needs a mask threshold
-    other than 0.5 post-processes the step's own output instead."""
-    host = {k: v.cpu().numpy() for k, v in out.items() if k not in _NOT_FETCHED}
-    host["point_mask_n"] = int(out["point_mask_logits"].shape[-1])
-    return host
+    other than 0.5 post-processes the step's own output instead. Span:
+    ``fetch``."""
+    with span("fetch"):
+        host = {k: v.cpu().numpy() for k, v in out.items() if k not in _NOT_FETCHED}
+        host["point_mask_n"] = int(out["point_mask_logits"].shape[-1])
+        return host
 
 
 def _scene_slice(out: Dict[str, np.ndarray], batch: Dict[str, np.ndarray], b: int):
@@ -67,23 +70,24 @@ def postprocess_scene(out: Dict[str, np.ndarray], b: int, num_classes: int,
     """Per-scene predictions for the evaluator from eval-step outputs (host
     numpy arrays): (masks bool[P, N], scores [P], pred_cls [P], pmask [P]).
     At the default threshold the masks come from the bit-packed path when
-    the outputs carry it."""
-    pmask = np.asarray(out["proposal_mask"][b])
-    cls_logits = np.asarray(out["cls_logits"][b])
-    cls_prob = np.exp(cls_logits - cls_logits.max(-1, keepdims=True))
-    cls_prob = cls_prob / cls_prob.sum(-1, keepdims=True)
-    fg_prob = cls_prob[:, :num_classes]
-    pred_cls = fg_prob.argmax(-1)
-    obj = 1 / (1 + np.exp(-np.clip(np.asarray(out["proposal_scores"][b]), -30, 30)))
-    scores = fg_prob.max(-1) * obj
-    if mask_threshold == 0.5 and "point_mask_bits" in out:
-        n = (out["point_mask_n"] if "point_mask_n" in out
-             else out["point_mask_logits"].shape[-1])
-        masks = np.unpackbits(np.asarray(out["point_mask_bits"][b]), axis=-1)[:, :n] > 0
-    else:
-        point_logits = np.asarray(out["point_mask_logits"][b])  # [P, N]
-        masks = point_logits > np.log(mask_threshold / (1 - mask_threshold))
-    return masks, scores, pred_cls, pmask
+    the outputs carry it. Span: ``postprocess``."""
+    with span("postprocess"):
+        pmask = np.asarray(out["proposal_mask"][b])
+        cls_logits = np.asarray(out["cls_logits"][b])
+        cls_prob = np.exp(cls_logits - cls_logits.max(-1, keepdims=True))
+        cls_prob = cls_prob / cls_prob.sum(-1, keepdims=True)
+        fg_prob = cls_prob[:, :num_classes]
+        pred_cls = fg_prob.argmax(-1)
+        obj = 1 / (1 + np.exp(-np.clip(np.asarray(out["proposal_scores"][b]), -30, 30)))
+        scores = fg_prob.max(-1) * obj
+        if mask_threshold == 0.5 and "point_mask_bits" in out:
+            n = (out["point_mask_n"] if "point_mask_n" in out
+                 else out["point_mask_logits"].shape[-1])
+            masks = np.unpackbits(np.asarray(out["point_mask_bits"][b]), axis=-1)[:, :n] > 0
+        else:
+            point_logits = np.asarray(out["point_mask_logits"][b])  # [P, N]
+            masks = point_logits > np.log(mask_threshold / (1 - mask_threshold))
+        return masks, scores, pred_cls, pmask
 
 
 def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
@@ -120,7 +124,12 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
     all of each step on the CPU), ``eval_fetch_s`` the copies to the host,
     ``eval_host_s`` the scoring. A well overlapped pass has ``eval_wall_s``
     near ``eval_dev_s + eval_fetch_s`` plus the host's work to queue the
-    steps and to score the last batch.
+    steps and to score the last batch. The last three are the summed
+    durations of the pass's spans ``eval.wait`` (on the CPU around the
+    step itself), ``eval.fetch`` and ``eval.score`` (with ``postprocess``,
+    ``add_scene`` and ``semantic`` under it); ``eval_compute_s``, the
+    evaluators' final ``compute``, is the duration of the span
+    ``eval.compute``.
 
     Under data parallel (:func:`..parallel.context.shard_context`, with
     ``loader`` a rank's share of each global batch) every rank runs the
@@ -141,80 +150,87 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
         num_scenes = len(ds) if ds is not None else None
     seen = 0
     semantic = False
-    t_dev = t_fetch = t_host = 0.0
+    t_dev = t_fetch = t_host = 0      # ns, the spans' durations summed
 
     def score(scenes) -> None:
         """Add one fetched batch's scenes, (global index, (outputs, labels)),
         to the evaluators."""
         nonlocal seen, semantic, t_host
-        t0 = time.perf_counter()
-        for g, (o, labels) in scenes:
-            if num_scenes is not None and g >= num_scenes:
-                continue       # a wrap-pad duplicate of a scene already scored
-            masks, scores, pred_cls, pmask = postprocess_scene(o, 0, cfg.model.num_classes)
-            point_valid, pinst, psem = labels
-            gt_cls = _gt_classes_from_points(pinst, psem, point_valid)
-            ev.add_scene(masks, scores, pred_cls, pmask, pinst, gt_cls, point_valid)
-            if "point_semantic_pred" in o:
-                semantic = True
-                sem_ev.add(np.asarray(o["point_semantic_pred"][0])[point_valid],
-                           psem[point_valid])
-            seen += 1
-        t_host += time.perf_counter() - t0
+        with span("eval.score") as s:
+            for g, (o, labels) in scenes:
+                if num_scenes is not None and g >= num_scenes:
+                    continue       # a wrap-pad duplicate of a scene already scored
+                masks, scores, pred_cls, pmask = postprocess_scene(
+                    o, 0, cfg.model.num_classes)
+                point_valid, pinst, psem = labels
+                with span("add_scene"):
+                    gt_cls = _gt_classes_from_points(pinst, psem, point_valid)
+                    ev.add_scene(masks, scores, pred_cls, pmask, pinst, gt_cls, point_valid)
+                if "point_semantic_pred" in o:
+                    semantic = True
+                    with span("semantic"):
+                        sem_ev.add(np.asarray(o["point_semantic_pred"][0])[point_valid],
+                                   psem[point_valid])
+                seen += 1
+                count("scenes")
+        t_host += s.ns
 
     pending = None     # the scenes of the batch before, fetched (rank 0's, gathered)
     batches = loader if max_batches is None else itertools.islice(loader, max_batches)
     for bi, (batch, dev) in enumerate(device_batches(batches, device, TL.BATCH_KEYS)):
-        t0 = time.perf_counter()
-        raw = TL.eval_step(cfg, model, dev)      # queued; the card starts on it
         if device.type == "cuda":
+            raw = TL.eval_step(cfg, model, dev)      # queued; the card starts on it
             # the end of this step on its stream: not of device_batches'
             # copies of the next batch, which run on a stream of their own
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(device))
         else:
-            t_dev += time.perf_counter() - t0    # the step ran inside the call
+            with span("eval.wait") as s:             # the step runs inside the call
+                raw = TL.eval_step(cfg, model, dev)
+            t_dev += s.ns
         if pending is not None:
             score(pending)   # on the host while the card runs step bi
-        t1 = time.perf_counter()
         if device.type == "cuda":
-            done.synchronize()
-        t2 = time.perf_counter()
-        out = fetch_eval_outputs(raw)
-        del raw              # drop the device outputs before the next step
-        local = len(batch["valid"])
-        first = bi * bs + (0 if world is None else world.rank * local)
-        pending = [(first + b, _scene_slice(out, batch, b)) for b in range(local)]
-        if world is not None:
-            ranks = DP.gather_to_rank0(pending, world)
-            pending = [] if ranks is None else [s for r in ranks for s in r]
-        t_dev += t2 - t1
-        t_fetch += time.perf_counter() - t2
+            with span("eval.wait") as s:
+                done.synchronize()
+            t_dev += s.ns
+        with span("eval.fetch") as s:
+            out = fetch_eval_outputs(raw)
+            del raw              # drop the device outputs before the next step
+            local = len(batch["valid"])
+            first = bi * bs + (0 if world is None else world.rank * local)
+            pending = [(first + b, _scene_slice(out, batch, b)) for b in range(local)]
+            if world is not None:
+                ranks = DP.gather_to_rank0(pending, world)
+                pending = [] if ranks is None else [x for r in ranks for x in r]
+        t_fetch += s.ns
     if pending is not None:
         score(pending)
     if world is not None and world.rank != 0:
         return DP.broadcast_from_rank0(None, world)
-    res = ev.compute(per_class=per_class)
-    if per_scene:
-        ps = np.asarray(ev.per_scene_map(0.5), np.float64)
-        finite = ps[np.isfinite(ps)]
-        if finite.size:
-            res["scene_map50_mean"] = float(finite.mean())
-            res["scene_map50_std"] = float(finite.std())
-            res["scene_map50_min"] = float(finite.min())
-            res["scene_map50_max"] = float(finite.max())
-        # None for a scene with no scoreable GT: NaN is not JSON
-        res["per_scene_mAP@0.5"] = [round(float(x), 4) if np.isfinite(x) else None
-                                    for x in ps]
-    if semantic:
-        sem = sem_ev.compute()
-        res["semantic_mIoU"] = sem["mIoU"]
-        res["semantic_acc"] = sem["accuracy"]
+    with span("eval.compute") as s:
+        res = ev.compute(per_class=per_class)
+        if per_scene:
+            ps = np.asarray(ev.per_scene_map(0.5), np.float64)
+            finite = ps[np.isfinite(ps)]
+            if finite.size:
+                res["scene_map50_mean"] = float(finite.mean())
+                res["scene_map50_std"] = float(finite.std())
+                res["scene_map50_min"] = float(finite.min())
+                res["scene_map50_max"] = float(finite.max())
+            # None for a scene with no scoreable GT: NaN is not JSON
+            res["per_scene_mAP@0.5"] = [round(float(x), 4) if np.isfinite(x) else None
+                                        for x in ps]
+        if semantic:
+            sem = sem_ev.compute()
+            res["semantic_mIoU"] = sem["mIoU"]
+            res["semantic_acc"] = sem["accuracy"]
     res["scenes"] = seen
     res["eval_wall_s"] = time.perf_counter() - t_pass
-    res["eval_dev_s"] = t_dev
-    res["eval_fetch_s"] = t_fetch
-    res["eval_host_s"] = t_host
+    res["eval_dev_s"] = t_dev / 1e9
+    res["eval_fetch_s"] = t_fetch / 1e9
+    res["eval_host_s"] = t_host / 1e9
+    res["eval_compute_s"] = s.ns / 1e9
     if world is not None:
         DP.broadcast_from_rank0(res, world)
     return res

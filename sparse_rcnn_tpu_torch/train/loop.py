@@ -43,6 +43,7 @@ from ..ops.consts import device_tensor
 from ..ops import voxelize as V
 from ..parallel import context as DPC
 from ..sparse import make_sparse_tensor
+from ..utils.profiling import span
 
 BATCH_KEYS = ("points", "feats", "valid")
 TRAIN_KEYS = BATCH_KEYS + ("point_instance", "point_semantic")
@@ -73,7 +74,9 @@ def to_device(batch: Dict[str, np.ndarray], device,
     """The arrays the device path reads (``keys``; :data:`TRAIN_KEYS` adds
     the point labels that GT is built from; any host-voxelized tables), as
     tensors on ``device``."""
-    return {k: torch.as_tensor(batch[k], device=device) for k in device_keys(batch, keys)}
+    with span("to_device"):
+        return {k: torch.as_tensor(batch[k], device=device)
+                for k in device_keys(batch, keys)}
 
 
 def prepare_inputs(cfg: Config, batch: Dict[str, torch.Tensor]):
@@ -87,45 +90,53 @@ def prepare_inputs(cfg: Config, batch: Dict[str, torch.Tensor]):
     holds the overflow counters (tensors on the batch's device), with a
     dense tail also ``dense_tail_oob``: the live sites of its first scale
     that fall outside the grid and are dropped from it.
+
+    Spans: ``prepare_inputs``, with ``voxelize`` (and the rebase),
+    ``hierarchy`` and ``gt`` under it.
     """
-    if "voxel_coords" in batch:
-        st = make_sparse_tensor(batch["voxel_coords"], batch["voxel_feats"],
-                                batch["voxel_nvalid"], assume_sorted=True)
-        p2v, ovf = batch["p2v"], batch["voxel_overflow"]
-    else:
-        st, p2v, ovf = V.voxelize_batch(
-            batch["points"], batch["feats"], batch["valid"], cfg.data.voxel_size,
-            cfg.data.voxel_capacity)
-    # integer per-scene rebase to non-negative coords: exact, and the frame
-    # the dense tail and the GT boxes use
-    st, base = V.rebase_coords(st, margin=2)
-    bb = cfg.model.backbone
-    dfs = bb.dense_from_scale
-    scales, hovf = H.build_hierarchy(
-        st, len(bb.widths), cfg.scale_capacities(), bb.kernel_size, subm_scales=dfs)
-    aux = {
-        "voxel_overflow": ovf.sum(),
-        "hierarchy_overflow": hovf.sum(),
-        "voxels_per_scene": st.nvalid.to(torch.float32).mean(),
-    }
-    if dfs is not None:
-        # a site outside the grid at the tail's first scale is outside at
-        # every deeper scale too
-        sc = scales[dfs]
-        ext = device_tensor([e >> dfs for e in bb.grid_extent], torch.int32,
-                            sc.coords.device)
-        inside = ((sc.coords >= 0) & (sc.coords < ext)).all(-1)
-        aux["dense_tail_oob"] = (sc.row_mask & ~inside).sum()
-    gt = None
-    if "point_instance" in batch:
-        gt = build_scene_gt(
-            batch["points"], batch["valid"], batch["point_instance"],
-            batch["point_semantic"], p2v, cfg.data.voxel_capacity,
-            cfg.data.voxel_size, cfg.model.max_instances, base=base)
-        # points whose instance id does not fit max_instances: dropped from
-        # the GT boxes, and counted
-        aux["gt_instance_overflow"] = (
-            batch["valid"] & (batch["point_instance"] >= cfg.model.max_instances)).sum()
+    with span("prepare_inputs"):
+        with span("voxelize"):
+            if "voxel_coords" in batch:
+                st = make_sparse_tensor(batch["voxel_coords"], batch["voxel_feats"],
+                                        batch["voxel_nvalid"], assume_sorted=True)
+                p2v, ovf = batch["p2v"], batch["voxel_overflow"]
+            else:
+                st, p2v, ovf = V.voxelize_batch(
+                    batch["points"], batch["feats"], batch["valid"], cfg.data.voxel_size,
+                    cfg.data.voxel_capacity)
+            # integer per-scene rebase to non-negative coords: exact, and the
+            # frame the dense tail and the GT boxes use
+            st, base = V.rebase_coords(st, margin=2)
+        bb = cfg.model.backbone
+        dfs = bb.dense_from_scale
+        with span("hierarchy"):
+            scales, hovf = H.build_hierarchy(
+                st, len(bb.widths), cfg.scale_capacities(), bb.kernel_size, subm_scales=dfs)
+            aux = {
+                "voxel_overflow": ovf.sum(),
+                "hierarchy_overflow": hovf.sum(),
+                "voxels_per_scene": st.nvalid.to(torch.float32).mean(),
+            }
+            if dfs is not None:
+                # a site outside the grid at the tail's first scale is outside
+                # at every deeper scale too
+                sc = scales[dfs]
+                ext = device_tensor([e >> dfs for e in bb.grid_extent], torch.int32,
+                                    sc.coords.device)
+                inside = ((sc.coords >= 0) & (sc.coords < ext)).all(-1)
+                aux["dense_tail_oob"] = (sc.row_mask & ~inside).sum()
+        gt = None
+        if "point_instance" in batch:
+            with span("gt"):
+                gt = build_scene_gt(
+                    batch["points"], batch["valid"], batch["point_instance"],
+                    batch["point_semantic"], p2v, cfg.data.voxel_capacity,
+                    cfg.data.voxel_size, cfg.model.max_instances, base=base)
+                # points whose instance id does not fit max_instances: dropped
+                # from the GT boxes, and counted
+                aux["gt_instance_overflow"] = (
+                    batch["valid"]
+                    & (batch["point_instance"] >= cfg.model.max_instances)).sum()
     return st, p2v, scales, gt, aux
 
 
@@ -200,15 +211,19 @@ def eval_step(cfg: Config, model, batch: Dict[str, torch.Tensor]):
     ``gt`` (a :class:`~..models.targets.SceneGT` when the batch carries the
     point labels, else None) and the overflow counters. ``model`` is a
     model or a :class:`TrainState`, in either tail form (:func:`eval_model`;
-    convert once with it before a loop)."""
-    model = eval_model(cfg, model)
-    st, p2v, scales, gt, aux = prepare_inputs(cfg, batch)
-    out = model.eval()(st.feats, scales)
-    result = finish(cfg, out, scales, p2v)
-    result["point_mask_bits"] = packbits(result["point_mask_logits"] > 0)
-    result["gt"] = gt
-    result.update(aux)
-    return result
+    convert once with it before a loop). Spans: ``eval_step``, with
+    ``prepare_inputs``, ``forward``, ``finish`` and ``packbits`` under it."""
+    with span("eval_step"):
+        model = eval_model(cfg, model)
+        st, p2v, scales, gt, aux = prepare_inputs(cfg, batch)
+        out = model.eval()(st.feats, scales)
+        with span("finish"):
+            result = finish(cfg, out, scales, p2v)
+        with span("packbits"):
+            result["point_mask_bits"] = packbits(result["point_mask_logits"] > 0)
+        result["gt"] = gt
+        result.update(aux)
+        return result
 
 
 # --------------------------------------------------------------------------
@@ -438,11 +453,14 @@ def loss_and_grads(cfg: Config, model: SparseRCNN, batch: Dict[str, torch.Tensor
     model.train()
     out = model(st.feats, scales, gt_boxes=gt.boxes, gt_boxes_valid=gt.valid,
                 generators=generators)
-    total, parts = compute_losses(cfg, out, scales, gt, st.row_mask)
+    with span("losses"):
+        total, parts = compute_losses(cfg, out, scales, gt, st.row_mask)
     params = list(model.parameters())
-    with deterministic_on_cpu(total.device):
+    # the backward's launches come from autograd's device thread while this
+    # thread waits in the span
+    with span("backward"), deterministic_on_cpu(total.device):
         grads = torch.autograd.grad(total, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     return total.detach(), {k: v.detach() for k, v in parts.items()}, grads, aux
 
 
@@ -474,28 +492,33 @@ def train_step(cfg: Config, state: TrainState, batch: Dict[str, torch.Tensor]):
     make_parallel_train_step``) it is the global batch's step: the losses
     carry the global denominators, the gradients are summed over the ranks
     in one all-reduce of one flat buffer, every rank then runs the same
-    optimizer and EMA update, and the metrics are the global batch's."""
-    cfg = train_cfg(cfg)
-    world = DPC.current()
-    generators = None
-    if cfg.model.backbone.dropout > 0:
-        b = batch["points"].shape[0]
-        first = 0 if world is None else world.rank * b
-        generators = dropout_generators(cfg, state.step, batch["points"].device,
-                                        range(first, first + b))
-    total, parts, grads, aux = loss_and_grads(cfg, state.model, batch, generators)
-    params = list(state.model.parameters())
-    metrics = dict(parts)
-    metrics.update(aux)
-    metrics["total"] = total
-    with torch.no_grad():
-        if world is not None:
-            DPC.all_reduce_flat_(grads, world)
-        metrics["grad_norm"] = optimizer_step(cfg, state, params, grads)
-        if world is not None:
-            reduce_metrics(metrics, world)
-    state.step += 1
-    return state, metrics
+    optimizer and EMA update, and the metrics are the global batch's.
+
+    Spans: ``train_step``, with ``prepare_inputs``, ``forward``, ``losses``,
+    ``backward`` and ``optimizer`` under it."""
+    with span("train_step"):
+        cfg = train_cfg(cfg)
+        world = DPC.current()
+        generators = None
+        if cfg.model.backbone.dropout > 0:
+            b = batch["points"].shape[0]
+            first = 0 if world is None else world.rank * b
+            generators = dropout_generators(cfg, state.step, batch["points"].device,
+                                            range(first, first + b))
+        total, parts, grads, aux = loss_and_grads(cfg, state.model, batch, generators)
+        params = list(state.model.parameters())
+        metrics = dict(parts)
+        metrics.update(aux)
+        metrics["total"] = total
+        with torch.no_grad():
+            if world is not None:
+                DPC.all_reduce_flat_(grads, world)
+            with span("optimizer"):
+                metrics["grad_norm"] = optimizer_step(cfg, state, params, grads)
+            if world is not None:
+                reduce_metrics(metrics, world)
+        state.step += 1
+        return state, metrics
 
 
 @torch.no_grad()

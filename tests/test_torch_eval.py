@@ -57,7 +57,7 @@ EVAL_OVERRIDES = {
     "model": OVERRIDES["model"],
     "train": {"lr": 0.05, "warmup_steps": 0, "total_steps": 50, "ema": 0.9},
 }
-TIME_KEYS = ("eval_wall_s", "eval_dev_s", "eval_fetch_s", "eval_host_s")
+TIME_KEYS = ("eval_wall_s", "eval_dev_s", "eval_fetch_s", "eval_host_s", "eval_compute_s")
 # the same model with a dense tail from scale 1
 DENSE_OVERRIDES = {**EVAL_OVERRIDES, "model": {
     **EVAL_OVERRIDES["model"], "backbone": {**EVAL_OVERRIDES["model"]["backbone"],
@@ -114,7 +114,7 @@ def test_run_eval_matches_jax(setup):
         res = E.run_eval(cfg, state, loader, per_class=True, per_scene=True)
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, before[k]), k          # the eval leaves the model as it is
-    assert sorted(res) == sorted(jres)
+    assert sorted(res) == sorted([*jres, "eval_compute_s"])    # the port times its compute
     assert res["scenes"] == jres["scenes"] == 3
     assert "semantic_mIoU" in res and "AP@0.5/class0" in res
     assert res["per_scene_mAP@0.5"] == jres["per_scene_mAP@0.5"]

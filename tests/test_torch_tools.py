@@ -158,7 +158,9 @@ def test_step_timer_matches_jax(monkeypatch):
 def test_train_profile_writes_trace(tmp_path):
     """``train.main --profile`` on the CPU: a ``profile`` line naming a
     trace in ``<checkpoint_dir>/profile/`` that parses as Chrome trace JSON
-    with the step's operations in it; and no trace without the flag."""
+    with the step's operations in it, and the loop's stage table (two
+    ``train_step`` spans, each with one ``backward``); and no trace without
+    the flag."""
     ckpt, log = str(tmp_path / "ckpt"), str(tmp_path / "train.jsonl")
     train_cli.main(_args(ckpt, "train.total_steps=2", "train.eval_every=100")
                    + ["--device", "cpu", "--log-file", log, "--profile"])
@@ -170,6 +172,9 @@ def test_train_profile_writes_trace(tmp_path):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
+    stages = rec["stages"]
+    assert stages["train_step"]["calls"] == 2 and stages["backward"]["calls"] == 2
+    assert 0 < stages["train_step"]["self_ms"] < stages["train_step"]["total_ms"]
     assert [r["scenes_per_sec"] for r in lines if r["kind"] == "train"][0] == 0.0
     with PPR.maybe_trace(False, str(tmp_path / "off")) as path:
         assert path is None
