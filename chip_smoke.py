@@ -8,8 +8,8 @@ nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the CUDA libraries from ``sparse_rcnn_tpu_torch/ops/csrc`` (the
-   sparse conv's, the indexing backwards' and the optimizer's, one ``nvcc``
-   each, together);
+   sparse conv's, the indexing backwards', the optimizer's and the NMS's,
+   one ``nvcc`` each, together);
 3. the forward kernel against its plain version on random inputs at every
    conv shape of a config-1 forward (f32 and bf16), a ragged M, a
    config-2-sized shape and the edge cases of its dead-tile skip and copy
@@ -38,7 +38,14 @@ nonzero:
    triggered and not, a zero and a NaN gradient, count 1 and 10^4, SGD, EMA
    on and off, the EMA alone, a list of two launches, config 2's 165
    shapes), with kernel, plain, library and bound times at config 1's and
-   config 2's shapes;
+   config 2's shapes; then the greedy 3D NMS kernel (``nms_3d``,
+   ``ops/nms.py``) against the plain loop ``nms_3d_reference`` scene by
+   scene, ``keep_idx`` and ``keep_mask`` bit-equal and bit-identical across
+   two launches, one launch a batch, on ``benchmarks/nms_cases.py``'s cases
+   (select's shapes, N not a multiple of 32 and past the block, ties,
+   identical boxes, no valid candidate, fewer than P, IoUs one ulp either
+   side of the threshold, the card's order of ``torch.prod``, NaN scores
+   and boxes), with kernel, plain, host and bound times at select's shapes;
 4. the config-1 inference slice on the card: ``infer.main`` on 3 val scenes
    (the forward count must rise by 10 per forward); tie-breaking of sort
    and argmax on the card; then the same weights and scenes on the CPU,
@@ -177,7 +184,9 @@ nonzero:
    phase 12's paths too; ``roi_crop_grad``, ``mask_read_map`` and
    ``mask_read_grad`` with their maps' ms and whether every comparison was
    bit-equal; ``global_norm``
-   and ``optim_apply`` likewise), then as the last line ``{"ok": true,
+   and ``optim_apply`` likewise; ``nms_3d`` with its launches in one
+   config-1 train step and eval step, and over phases 4-12 against the
+   detector's select calls on the card, one each), then as the last line ``{"ok": true,
    "device": {...}}``.
 
 TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
@@ -212,6 +221,7 @@ from torch.profiler import ProfilerActivity, profile
 import sparse_rcnn_tpu_torch.train.__main__ as train_cli
 from benchmarks import eval_step_syncs as SYNCS
 from benchmarks import mask_map_cases as MC
+from benchmarks import nms_cases as NC
 from benchmarks import optim_cases as OC
 from benchmarks import profile_torch_slice as PROF
 from sparse_rcnn_tpu_torch import eval as eval_cli
@@ -222,6 +232,7 @@ from sparse_rcnn_tpu_torch.data.augment import augment_scene
 from sparse_rcnn_tpu_torch import native
 from sparse_rcnn_tpu_torch.data.pipeline import VOXEL_KEYS, Loader, collate, device_batches
 from sparse_rcnn_tpu_torch.data.ply import write_ply
+from sparse_rcnn_tpu_torch.models import detector as DET
 from sparse_rcnn_tpu_torch.models import heads as PHd
 from sparse_rcnn_tpu_torch.models.convert import convert_variables, tree_boundary
 from sparse_rcnn_tpu_torch.models.layers import SparseBasicBlock, SparseConv
@@ -229,6 +240,7 @@ from sparse_rcnn_tpu_torch.models import unet as U
 from sparse_rcnn_tpu_torch.models.transfer import from_flax, unflatten_variables
 from sparse_rcnn_tpu_torch.models.unet import scatter_to_grid
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
+from sparse_rcnn_tpu_torch.ops import nms as PN
 from sparse_rcnn_tpu_torch.ops import optim as OPT
 from sparse_rcnn_tpu_torch.ops import sparse_conv as sc
 from sparse_rcnn_tpu_torch.ops import voxelize as V
@@ -469,14 +481,15 @@ def card_info() -> str:
 
 
 def build() -> None:
-    """The three CUDA libraries, one ``nvcc`` each, started together."""
+    """The four CUDA libraries, one ``nvcc`` each, started together."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         built = list(pool.map(lambda a: sc.build_kernel(*a),
                               [(sc._SRC, "sparse_conv"), (IG._SRC, "index_grad"),
-                               (OPT._SRC, "optim", OPT._LIB.flags)]))
+                               (OPT._SRC, "optim", OPT._LIB.flags),
+                               (PN._SRC, "nms", PN._LIB.flags)]))
     for k in (sc.KERNEL, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_MAP, IG.MASK_READ_GRAD,
-              OPT.GLOBAL_NORM, OPT.OPTIM_APPLY):
+              OPT.GLOBAL_NORM, OPT.OPTIM_APPLY, PN.NMS):
         k.load()
     log(f"[phase 2] built {', '.join(os.path.relpath(so, ROOT) for so, _ in built)} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1363,6 +1376,120 @@ def phase_optim() -> tuple:
     if bad:
         raise AssertionError(f"optimizer kernels disagree with their plain versions: {bad}")
     return recs, shapes
+
+
+def nms_record(name: str, seed: int, timed: bool = False) -> dict:
+    """The NMS kernel against the plain loop on case ``name`` of
+    ``NC.NMS_CASES``: ``keep_idx`` and ``keep_mask`` bit-equal and
+    bit-identical across two launches, one launch a call; the "ulp" and
+    "prod" cases' pair IoUs as ``box_iou_3d`` gives them on the card;
+    ``timed``, kernel, plain, host and bound times too."""
+    c = NC.nms_case(name, DEVICE, seed)
+    before = PN.NMS.launches
+    got, again = NC.run_kernel(c), NC.run_kernel(c)
+    want = NC.run_plain(c)
+    torch.cuda.synchronize()
+    b, n = c["scores"].shape
+    rec = {"case": name, "scenes": b, "candidates": n, "outputs": c["p"],
+           "threshold": c["threshold"], "kept": int(got[1].sum()),
+           "launches_per_call": (PN.NMS.launches - before) / 2,
+           "bit_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+           "bit_identical": all(torch.equal(g, a) for g, a in zip(got, again))}
+    if "pairs" in c:
+        rec["pair_ious"] = NC.pair_ious(c)
+        rec["pairs_kept"] = [[i in got[0][0][got[1][0]].tolist() for i in pair]
+                             for pair in c["pairs"]]
+    rec["ok"] = rec["bit_equal"] and rec["bit_identical"] and rec["launches_per_call"] == 1
+    if timed:
+        # the plain loop's host takes tens of ms a call: spin long enough to queue it
+        q = {k: {**v, "spin": OPTIM_SPIN_CYCLES} for k, v in QUICK_REPS.items()}
+        nbytes = b * n * (6 * 4 + 4 + 1) + b * c["p"] * (4 + 1)
+        rec.update({
+            "kernel_ms": time_ms(lambda: NC.run_kernel(c), **REPS["kernel"]),
+            "plain_ms": time_ms(lambda: NC.run_plain(c), **q["plain"]),
+            "host_ms": host_ms(lambda: NC.run_kernel(c)),
+            "plain_host_ms": host_ms(lambda: NC.run_plain(c), calls=3),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    log(f"  nms {name:10s} {b} x {n} -> {c['p']}: kept {rec['kept']}, bit_equal="
+        f"{rec['bit_equal']} bit_identical={rec['bit_identical']} launches/call "
+        f"{rec['launches_per_call']} {'ok' if rec['ok'] else 'MISMATCH'}"
+        + (f" | pair IoUs {rec['pair_ious']} kept {rec['pairs_kept']}" if "pairs" in c else "")
+        + ("" if not timed else " | " + ", ".join(
+            f"{k}={rec[k]:.4f}" for k in rec if k.endswith("_ms"))))
+    return rec
+
+
+def phase_nms() -> tuple:
+    """Every case of ``NC.NMS_CASES``, then select's shapes timed (config
+    2's two scenes of 512 candidates to 128, config 1's one of 128 to 32).
+    Returns (records, {config: timed record})."""
+    log("[phase 3, NMS] nms_3d vs the plain loop nms_3d_reference scene by scene: keep_idx "
+        "and keep_mask bit-equal and bit-identical across two launches, one launch a batch")
+    recs = [nms_record(name, 1000 + i) for i, (name, *_) in enumerate(NC.NMS_CASES)]
+    timed = {"config2_scannet_2cm": nms_record("select", 1100, timed=True),
+             "config1_tiny_5cm": nms_record("config1", 1101, timed=True)}
+    ulp = next(r for r in recs if r["case"] == "ulp")
+    if ulp["pairs_kept"] != [[True, True], [True, False], [True, False]]:
+        raise AssertionError(f"near the threshold the kernel kept {ulp['pairs_kept']}: the "
+                             "threshold is not compared as a float32")
+    bad = [r["case"] for r in recs + list(timed.values()) if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the NMS kernel disagrees with the plain loop: {bad}")
+    return recs, timed
+
+
+def count_selects() -> list:
+    """Wrap the detector's ``select_proposals`` to count its calls on CUDA
+    tensors in ``[0]`` of the list returned (each should launch one NMS)."""
+    calls = [0]
+    select = DET.select_proposals
+
+    def counted(obj_logits, *args, **kw):
+        calls[0] += obj_logits.is_cuda
+        return select(obj_logits, *args, **kw)
+    DET.select_proposals = counted
+    return calls
+
+
+def nms_step_launches() -> dict:
+    """NMS launches in one config-1 train step and one eval step on the card
+    (one each: the batch's scenes in one launch)."""
+    cfg = load_config(CONFIG1)
+    batch = next(Loader(cfg, seed=cfg.train.seed, threads=False))
+
+    def model():
+        return TL.build_model(cfg, DEVICE, torch.Generator().manual_seed(cfg.train.seed))
+    out = {}
+    before = PN.NMS.launches
+    TL.eval_step(cfg, TL.eval_model(cfg, model()), TL.to_device(batch, DEVICE))
+    out["config1 eval step"] = PN.NMS.launches - before
+    state = TL.init_state(cfg, model=model())
+    before = PN.NMS.launches
+    TL.train_step(cfg, state, TL.to_device(batch, DEVICE, TL.TRAIN_KEYS))
+    out["config1 train step"] = PN.NMS.launches - before
+    torch.cuda.synchronize()
+    log(f"  NMS launches: {json.dumps(out)}")
+    if out != {"config1 eval step": 1, "config1 train step": 1}:
+        raise AssertionError(f"expected one NMS launch a step, got {out}")
+    return out
+
+
+def nms_entry(recs, timed, paths) -> dict:
+    """The NMS kernel of the ``kernels`` line: config 2's shape at the top
+    level, config 1's under ``config1``."""
+    def fig(r):
+        return {k: r[k] for k in ("kernel_ms", "plain_ms", "host_ms", "plain_host_ms",
+                                  "bound_ms")}
+    return {"name": "nms_3d", "route": "cuda", "source": "sparse_rcnn_tpu_torch/ops/csrc/nms.cu",
+            "replaces": "the port's greedy loop ops/nms.py::nms_3d_reference (JAX: "
+                        "sparse_rcnn_tpu/ops/nms.py::nms_3d, a lax.fori_loop)",
+            "launches": paths["config1 train step"], **fig(timed["config2_scannet_2cm"]),
+            "bit_equal": all(r["bit_equal"] and r["bit_identical"]
+                             for r in recs + list(timed.values())),
+            "library": None, "bound_by": "bytes (the work is P barrier-bound iterations)",
+            "per": "one select call of config 2 (2 scenes, 512 candidates, 128 outputs); "
+                   "plain: nms_3d_reference scene by scene; config1: 1 scene, 128 to 32",
+            "config1": fig(timed["config1_tiny_5cm"]), "launches_by_path": paths}
 
 
 def train_step_syncs(cfg, state, batches) -> dict:
@@ -3536,6 +3663,9 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     bwd_recs = phase_backward_kernels()
     index_recs = phase_index_grad()
     optim_recs, optim_shapes = phase_optim()
+    nms_recs, nms_timed = phase_nms()
+    selects = count_selects()
+    nms_before = PN.NMS.launches
     launches, split, main_path = phase_slice(args.out_dir, os.path.join(tmp_dir, "none"))
     dead = next(r for r in recs if (r["conv"], r["dtype"]) == ("all_dead", "float32"))
     enc = next(r for r in main_path if r["conv"] == "enc0.conv1")
@@ -3553,6 +3683,13 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     p10 = phase_data_layer(args.out_dir, tmp_dir, smi, c2_convs)
     p11 = phase_data_parallel(args.out_dir, tmp_dir, smi)
     p12 = phase_tools(args.out_dir, tmp_dir, smi, c2)
+    steps = nms_step_launches()
+    every = [PN.NMS.launches - nms_before, selects[0]]
+    log(f"[phase 12] NMS launches over phases 4-12 and the two steps against select calls "
+        f"on the card: {every}")
+    if every[0] != every[1]:
+        raise AssertionError(f"{every[0]} NMS launches for {every[1]} select calls on the card")
+    nms_paths = {**steps, "phases 4-12 in this process (select calls on the card)": every[0]}
 
     src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
     records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
@@ -3611,12 +3748,14 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
                     "sparse_rcnn_tpu/train/loop.py:75-87 (make_optimizer: clip + adamw | sgd), "
                     ":286-289 (update, apply_updates), :298-312 (the EMA)",
                     c2["launches_train"][7], optim_recs, optim_shapes, paths, 7),
+        nms_entry(nms_recs, nms_timed, nms_paths),
     ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "convs_random": recs, "convs_main_path": main_path,
               "dead_tile_vs_main_path": dead_vs_main,
               "backward_random": bwd_recs, "index_grad_edges": index_recs,
               "optim_edges": optim_recs, "optim_shapes": optim_shapes,
+              "nms_cases": nms_recs, "nms_timed": nms_timed,
               "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
               "train": train, "golden_train": golden_train, "config2": c2,

@@ -58,21 +58,20 @@ class RPNHead(nn.Module):
 def select_proposals(obj_logits, boxes, valid, cfg: RPNConfig):
     """Static top-k + NMS per scene → (boxes [B,P,6], scores [B,P], mask [B,P]).
 
-    No gradient flows: proposal geometry is a hard decision.
+    The batch at once: one row-wise sort, one NMS call (on the card one
+    launch for every scene), batched gathers. No gradient flows: proposal
+    geometry is a hard decision.
     """
     # logit of the score threshold, taken in f32 as the JAX package takes it
     thr = torch.log(obj_logits.new_full((), cfg.score_threshold / (1 - cfg.score_threshold),
                                         dtype=torch.float32))
-    out_boxes, out_scores, out_mask = [], [], []
-    for scores_m, boxes_m, valid_m in zip(obj_logits, boxes, valid):
-        vals, idx, mask = nms_ops.topk_rows(scores_m, valid_m, cfg.pre_nms_topk)
-        cand = boxes_m[idx.to(torch.int64)]
-        keep_idx, keep_mask = nms_ops.nms_3d(
-            cand, vals, mask, cfg.nms_iou_threshold, cfg.num_proposals)
-        safe = keep_idx.clamp(0, cfg.pre_nms_topk - 1).to(torch.int64)
-        p_scores = torch.where(keep_mask, vals[safe], vals.new_full((), float("-inf")))
-        p_mask = keep_mask & (p_scores > thr)
-        out_boxes.append(cand[safe])
-        out_scores.append(torch.where(p_mask, p_scores, vals.new_full((), -1e9)))
-        out_mask.append(p_mask)
-    return torch.stack(out_boxes), torch.stack(out_scores), torch.stack(out_mask)
+    vals, idx, mask = nms_ops.topk_rows(obj_logits, valid, cfg.pre_nms_topk)
+    cand = torch.gather(boxes, 1, idx.to(torch.int64)[..., None].expand(-1, -1, 6))
+    keep_idx, keep_mask = nms_ops.nms_3d(cand, vals, mask, cfg.nms_iou_threshold,
+                                         cfg.num_proposals)
+    safe = keep_idx.clamp(0, cfg.pre_nms_topk - 1).to(torch.int64)
+    p_scores = torch.where(keep_mask, torch.gather(vals, 1, safe),
+                           vals.new_full((), float("-inf")))
+    p_mask = keep_mask & (p_scores > thr)
+    out_boxes = torch.gather(cand, 1, safe[..., None].expand(-1, -1, 6))
+    return out_boxes, torch.where(p_mask, p_scores, vals.new_full((), -1e9)), p_mask

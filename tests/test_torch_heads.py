@@ -61,20 +61,33 @@ def test_rpn_head(rng):
         close(g, w, what=name)
 
 
-def test_select_proposals_with_ties(rng):
-    n = 80
-    obj = rng.normal(size=(2, n)).astype(np.float32)
+def select_with_ties(rng, batch=2, n=80, topk=40, proposals=16):
+    """JAX's select_proposals against the port's on scores with ties (two
+    runs of equal values, an identical box among them), a batch at once."""
+    obj = rng.normal(size=(batch, n)).astype(np.float32)
     obj[:, 10:20] = 1.5                          # tied scores
     obj[:, 30:40] = obj[:, 40:50]                # more ties, at other values
-    boxes = np.stack([random_boxes(rng, n), random_boxes(rng, n)])
+    boxes = np.stack([random_boxes(rng, n) for _ in range(batch)])
     boxes[:, 12] = boxes[:, 11]                  # an identical box among the ties
-    valid = rng.random((2, n)) < 0.85
-    cfg = RPNConfig(num_proposals=16, pre_nms_topk=40, nms_iou_threshold=0.3)
+    valid = rng.random((batch, n)) < 0.85
+    cfg = RPNConfig(num_proposals=proposals, pre_nms_topk=topk, nms_iou_threshold=0.3)
     want = JRpn.select_proposals(jnp.asarray(obj), jnp.asarray(boxes), jnp.asarray(valid), cfg)
     got = PRpn.select_proposals(T(obj), T(boxes), T(valid), PCfg.RPNConfig(
-        num_proposals=16, pre_nms_topk=40, nms_iou_threshold=0.3))
+        num_proposals=proposals, pre_nms_topk=topk, nms_iou_threshold=0.3))
     for name, g, w in zip(("boxes", "scores", "mask"), got, want):
         eq(g, w, name)
+
+
+def test_select_proposals_with_ties(rng):
+    select_with_ties(rng)
+
+
+@pytest.mark.parametrize("batch,n,topk,proposals", [(3, 80, 40, 16), (2, 97, 45, 20),
+                                                    (3, 150, 70, 24)],
+                         ids=["batch3", "topk45", "batch3_topk70"])
+def test_select_proposals_with_ties_batched(rng, batch, n, topk, proposals):
+    """Batch 3 and candidate counts (N = pre_nms_topk) not a multiple of 32."""
+    select_with_ties(rng, batch, n, topk, proposals)
 
 
 def test_topk_nms_iou_with_ties(rng):

@@ -2,7 +2,7 @@
 sparse conv's (forward, dgrad, wgrad), the gather-form backwards of the
 RoI crop and the bf16 mask read (``roi_crop_grad``, ``mask_read_map``,
 ``mask_read_grad``), and the optimizer's (``global_sumsq_*``,
-``optim_apply``).
+``optim_apply``), and the greedy 3D NMS (``nms_3d``).
 
 This file imports neither jax nor the JAX package, so that it also runs on a
 machine that has a card and no JAX. ``tests/conftest.py`` imports jax, so
@@ -20,7 +20,9 @@ stable sort bit for bit, on ``benchmarks/mask_map_cases.py``'s cases. The
 optimizer's kernels repeat their plain versions' float32 operations in
 their order and are held to them bit for bit too (NaN counts as equal to
 NaN), on ``benchmarks/optim_cases.py``'s cases, which ``chip_smoke.py``
-runs too.
+runs too. The NMS kernel is held to the plain loop ``nms_3d_reference``
+bit for bit on ``keep_idx`` and ``keep_mask``, on
+``benchmarks/nms_cases.py``'s cases, which ``chip_smoke.py`` runs too.
 """
 
 import numpy as np
@@ -28,8 +30,12 @@ import pytest
 import torch
 
 from benchmarks import mask_map_cases as MC
+from benchmarks import nms_cases as NC
 from benchmarks import optim_cases as OC
+from sparse_rcnn_tpu_torch.config import RPNConfig
+from sparse_rcnn_tpu_torch.models import rpn as PRpn
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
+from sparse_rcnn_tpu_torch.ops import nms as PN
 from sparse_rcnn_tpu_torch.ops import optim as OPT
 from sparse_rcnn_tpu_torch.ops import sparse_conv as SC
 
@@ -496,3 +502,38 @@ def test_cuda_optimizer_kernels_refuse_a_cpu_tensor(cuda_device):
     with pytest.raises(ValueError):
         OPT.optim_apply(norm, lists["grads"], lists["params"], lists["mu"], lists["nu"], None,
                         OPT.Step("adamw", lr=1e-3, count=1, clip=10.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [c[0] for c in NC.NMS_CASES])
+def test_cuda_nms_kernel_bit_equal_to_plain(cuda_device, name):
+    c = NC.nms_case(name, cuda_device, seed=7)
+    before = PN.NMS.launches
+    got, again = (PN.nms_3d(c["boxes"], c["scores"], c["valid"], c["threshold"], c["p"])
+                  for _ in range(2))
+    want = NC.run_plain(c)
+    assert PN.NMS.launches == before + 2
+    for what, g, a, w in zip(("keep_idx", "keep_mask"), got, again, want):
+        assert torch.equal(g, a), f"{name}: {what} differs run to run"
+        assert torch.equal(g, w), f"{name}: {what} differs from the plain loop"
+
+
+@pytest.mark.cuda
+def test_cuda_select_proposals_one_nms_launch(cuda_device, monkeypatch):
+    """select_proposals on a seeded batch: one NMS launch for both scenes,
+    outputs equal to the same function with the plain loop scene by scene."""
+    rng = np.random.default_rng(11)
+    b, m = 2, 6000
+    obj = torch.from_numpy(rng.normal(size=(b, m)).astype(np.float32)).to(cuda_device)
+    boxes = torch.from_numpy(np.stack([NC.scene_boxes(rng, m) for _ in range(b)])).to(
+        cuda_device)
+    valid = torch.from_numpy(rng.random((b, m)) < 0.8).to(cuda_device)
+    cfg = RPNConfig(num_proposals=128, pre_nms_topk=512)
+    before = PN.NMS.launches
+    got = PRpn.select_proposals(obj, boxes, valid, cfg)
+    assert PN.NMS.launches == before + 1
+    monkeypatch.setattr(PN, "nms_3d", lambda bx, s, v, t, p: NC.run_plain(
+        {"boxes": bx, "scores": s, "valid": v, "threshold": t, "p": p}))
+    want = PRpn.select_proposals(obj, boxes, valid, cfg)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
