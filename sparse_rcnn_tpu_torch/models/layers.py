@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -22,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import sparse_conv as sc
 from ..parallel import context as DPC
+from ..utils.profiling import count, span
 
 # True while a rematerialised block recomputes its forward in the backward
 # (:func:`remat`): MaskedBatchNorm then leaves its running statistics alone
@@ -139,6 +141,23 @@ def _recomputing():
         _RECOMPUTING = was
 
 
+class RematCounters:
+    """What :func:`remat` recomputed in this process, as plain integers like
+    ``ops/sparse_conv.py::KERNEL.launches``: ``blocks`` recomputed,
+    ``launches`` of the sparse-conv forward kernel made while recomputing
+    (the change of ``KERNEL.launches`` across each block's recompute),
+    ``ns`` of host time spent recomputing (the ``remat`` spans' own
+    durations, kept outside ``recording()`` too) and ``passes``, the
+    backward passes that recomputed at least one block."""
+
+    def __init__(self):
+        self.blocks = self.launches = self.ns = self.passes = 0
+        self.armed = False       # a forward ran blocks that its backward will recompute
+
+
+REMAT = RematCounters()
+
+
 def remat(block: nn.Module, *args):
     """``block(*args)`` without keeping its activations for the backward
     (flax's ``nn.remat``): ``torch.utils.checkpoint`` runs the forward again
@@ -147,18 +166,35 @@ def remat(block: nn.Module, *args):
     statistic. Under data parallel it runs in the data-parallel context of
     the first run (the backward may run on another thread), so every rank
     issues the same collectives again, in the same order. Without a
-    gradient to take, the block just runs."""
+    gradient to take, the block just runs.
+
+    Each recompute is the span ``remat`` (counter ``remat_blocks``), opened
+    under the span that the thread of the forward waits in (``backward``),
+    and goes into :data:`REMAT`."""
     if not (torch.is_grad_enabled() and block.training):
         return block(*args)
     calls = []
     world = DPC.current()
+    waiter = threading.get_ident()
 
     def run(*a):
         calls.append(None)
         if len(calls) == 1:
+            REMAT.armed = True
             return block(*a)
-        with _recomputing(), DPC.shard_context(world):
-            return block(*a)
+        if REMAT.armed:
+            REMAT.passes += 1
+            REMAT.armed = False
+        k0 = sc.KERNEL.launches
+        s = span("remat", waiter)
+        try:
+            with s, _recomputing(), DPC.shard_context(world):
+                count("remat_blocks")
+                return block(*a)
+        finally:
+            REMAT.blocks += 1
+            REMAT.launches += sc.KERNEL.launches - k0
+            REMAT.ns += s.ns
     return checkpoint(run, *args, use_reentrant=False)
 
 

@@ -31,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 _records: Optional[list] = None      # the list of the open recording(), else None
 _local = threading.local()           # .stack: this thread's open recorded spans
+_stacks: Dict[int, list] = {}        # thread id → that thread's .stack
 _ids = itertools.count()
 
 
@@ -40,20 +41,26 @@ class span:
     itself the record: ``name``, ``t0``, ``t1`` (``perf_counter_ns``),
     ``id``, ``parent`` (the id of the span it opened in, None for a root),
     ``root`` (its root's id), ``thread`` and ``counts`` (name → n, from
-    :func:`count`)."""
+    :func:`count`). ``span(name, waiter)``: where this thread has no span
+    open, it opens under the innermost span open on thread ``waiter``."""
 
-    __slots__ = ("name", "t0", "t1", "id", "parent", "root", "thread", "counts", "_on")
+    __slots__ = ("name", "t0", "t1", "id", "parent", "root", "thread", "counts", "_on",
+                 "_waiter")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, waiter: Optional[int] = None):
         self.name = name
         self.counts: Optional[Dict[str, int]] = None
         self._on = False
+        self._waiter = waiter
 
     def __enter__(self) -> "span":
         records = _records
         if records is not None:
             stack = _stack()
             outer = stack[-1] if stack else None
+            if outer is None and self._waiter is not None:
+                tail = _stacks.get(self._waiter, [])[-1:]
+                outer = tail[0] if tail else None
             self.id = next(_ids)
             self.parent = None if outer is None else outer.id
             self.root = self.id if outer is None else outer.root
@@ -77,7 +84,7 @@ class span:
 def _stack() -> list:
     stack = getattr(_local, "stack", None)
     if stack is None:
-        stack = _local.stack = []
+        stack = _local.stack = _stacks[threading.get_ident()] = []
     return stack
 
 

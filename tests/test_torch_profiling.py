@@ -92,6 +92,36 @@ def test_each_thread_nests_its_own_spans():
     assert got["x"][0].thread != got["y"][0].thread
 
 
+def test_a_span_with_a_waiter_nests_under_the_waiting_threads_span():
+    """A span opened on a thread with none open (autograd's device thread in
+    a backward) names the thread that waits for it, and opens under that
+    thread's innermost span; one with a span open on its own thread, or
+    naming none, does not."""
+    waiter = threading.get_ident()
+    got = {}
+
+    def work():
+        with P.span("recompute", waiter) as r:
+            with P.span("inner", waiter) as i:
+                pass
+        with P.span("alone") as a:
+            pass
+        got.update(r=r, i=i, a=a)
+
+    with P.recording() as recs:
+        with P.span("step") as step:
+            with P.span("backward") as bwd:
+                t = threading.Thread(target=work)
+                t.start()
+                t.join(timeout=10)
+    assert not t.is_alive() and len(recs) == 5
+    r, i, a = got["r"], got["i"], got["a"]
+    assert r.parent == bwd.id and r.root == step.id and r.thread != bwd.thread
+    assert i.parent == r.id and i.root == step.id
+    assert a.parent is None and a.root == a.id
+    assert P.stage_table(recs)["backward"]["self_ms"] == pytest.approx((bwd.ns - r.ns) / 1e6)
+
+
 def test_off_records_nothing_but_times():
     with P.recording() as recs:
         pass
