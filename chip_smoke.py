@@ -121,8 +121,8 @@ nonzero:
    weights and 6 val scenes, in turns: packed mask bits ``torch.equal``,
    mAP, per-scene mAP and scene count equal, both passes' wall, wait,
    fetch and host seconds a scene, and the lookahead pass's peak memory at
-   most one eval step's peak plus one batch's inputs (no two steps'
-   outputs live at once);
+   most one eval step's peak plus one batch's inputs, instance ids
+   included (no two steps' outputs live at once);
 10. the data layer and the pooled backbone at full width: each reader's
    files written into the temporary directory from the port's generator
    (ScanNet ``.npz`` and ``.pth`` scenes of 300000 points, 4 train and 3
@@ -2233,7 +2233,8 @@ def lookahead_check(cfg, model, what: str) -> dict:
     check, the gap from its return to its end on the card, and ``run_eval``
     against :func:`sequential_eval` in turns, equal results, each pass's
     split a scene, the lookahead pass's peak memory (the bytes requested)
-    within one eval step's peak plus one batch's inputs."""
+    within one eval step's peak plus one batch's inputs (as ``run_eval``
+    sends them: the instance ids of its overlap counts included)."""
     n = LOOKAHEAD_SCENES
     bs = cfg.data.batch_size
     batches = list(itertools.islice(val_batches(cfg), -(-n // bs)))
@@ -2258,14 +2259,17 @@ def lookahead_check(cfg, model, what: str) -> dict:
         "end on the card (card_ms): "
         + ", ".join(f"{k} {v['median']:.3f} ({v['min']:.3f}, {v['max']:.3f})"
                     for k, v in gap.items()))
-    # one step's peak, its batch already on the card, and one batch's inputs
+    # one step's peak, its batch already on the card, and one batch's inputs;
+    # the inputs as run_eval sends them: with the instance ids its overlap
+    # counts read after each step
+    ids = [torch.as_tensor(b["point_instance"], device=DEVICE) for b in batches[:2]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = TL.eval_step(cfg, model, dev[0])
     torch.cuda.synchronize()
     step_peak = peak_bytes()
-    batch_bytes = sum(t.nbytes for t in dev[0].values())
-    del out, dev
+    batch_bytes = sum(t.nbytes for t in dev[0].values()) + ids[0].nbytes
+    del out, dev, ids
     passes, bits, peak = [], {}, {"requested": 0, "allocated": 0}
     for form in ("sequential", "lookahead", "lookahead", "sequential"):
         got = []

@@ -1,7 +1,8 @@
 """Evaluation over a split (port of ``sparse_rcnn_tpu/train/evaluate.py``):
-run the eval batches, post-process each scene on the host and score
-instance mAP on points (predictions are devoxelized to points before
-scoring), with the semantic head's mIoU when it is on."""
+run the eval batches, count each scene's prediction x GT overlaps on the
+device and score instance mAP on points from the counts on the host
+(predictions are devoxelized to points before counting), with the semantic
+head's mIoU when it is on."""
 
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from . import loop as TL
 # eval-step outputs that stay on the device: the [B, P, N] f32 logits
 # (their booleans travel as point_mask_bits) and the GT struct
 _NOT_FETCHED = ("point_mask_logits", "gt")
+# run_eval's additions to a step's outputs: overlap_counts' three tables
+OVERLAP_KEYS = ("overlap_inter", "overlap_pred_sum", "overlap_gt_sum")
 
 
 def _gt_classes_from_points(pinst: np.ndarray, psem: np.ndarray,
@@ -90,6 +93,55 @@ def postprocess_scene(out: Dict[str, np.ndarray], b: int, num_classes: int,
         return masks, scores, pred_cls, pmask
 
 
+def overlap_counts(mask: torch.Tensor, valid: torch.Tensor, instance: torch.Tensor,
+                   width: int):
+    """Prediction x GT overlap counts of a batch, on its device, from the
+    eval step's point masks (bool [B, P, N]), the points' ``valid`` (bool
+    [B, N]) and instance ids (int [B, N], -1 none), for the ids below
+    ``width``. Returns int32 ``inter`` [B, P, W] (points of mask p and id
+    g), ``pred_sum`` [B, P] (points of mask p) and ``gt_sum`` [B, W]
+    (points of id g), each over the valid points only: the integers that
+    ``InstanceAPEvaluator``'s matmul and sums give from the masks. The
+    intersections are one float32 matmul of 0/1 a scene (TF32 off): exact,
+    as every sum stays below 2^24. Queues its work; reads nothing back."""
+    ids = torch.arange(width, device=instance.device, dtype=instance.dtype)
+    inter, pred_sum, gt_sum = [], [], []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for b in range(mask.shape[0]):       # one scene at a time: half the transient
+            pm = mask[b] & valid[b]                                    # [P, N]
+            gm = (instance[b, :, None] == ids) & valid[b, :, None]     # [N, W]
+            inter.append(pm.to(torch.float32) @ gm.to(torch.float32))
+            pred_sum.append(pm.sum(-1, dtype=torch.int32))
+            gt_sum.append(gm.sum(0, dtype=torch.int32))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return torch.stack(inter).to(torch.int32), torch.stack(pred_sum), torch.stack(gt_sum)
+
+
+def overlap_width(batch: Dict[str, np.ndarray]) -> int:
+    """The width of a host batch's overlap counts: its largest instance id
+    at a valid point, plus 1 (0 without one)."""
+    return int(np.max(batch["point_instance"], where=batch["valid"], initial=-1)) + 1
+
+
+def scene_scores(out: Dict[str, np.ndarray], b: int, num_classes: int):
+    """Scene ``b``'s (scores [P], pred_cls [P], pmask [P]) from fetched eval
+    outputs: :func:`postprocess_scene`'s expressions, without its masks.
+    Span: ``postprocess``."""
+    with span("postprocess"):
+        pmask = np.asarray(out["proposal_mask"][b])
+        cls_logits = np.asarray(out["cls_logits"][b])
+        cls_prob = np.exp(cls_logits - cls_logits.max(-1, keepdims=True))
+        cls_prob = cls_prob / cls_prob.sum(-1, keepdims=True)
+        fg_prob = cls_prob[:, :num_classes]
+        pred_cls = fg_prob.argmax(-1)
+        obj = 1 / (1 + np.exp(-np.clip(np.asarray(out["proposal_scores"][b]), -30, 30)))
+        scores = fg_prob.max(-1) * obj
+        return scores, pred_cls, pmask
+
+
 def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
              num_scenes: Optional[int] = None, per_class: bool = False,
              per_scene: bool = False) -> Dict[str, float]:
@@ -115,6 +167,15 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
     a strictly sequential pass would. On the CPU the step is synchronous and
     the same loop runs one batch after the other.
 
+    The scoring reads no per-point mask: after each step, on its stream and
+    with no host sync, :func:`overlap_counts` counts each proposal's mask
+    (the step's logits > 0, the booleans ``point_mask_bits`` packs)
+    against each GT instance on the valid points (the batches'
+    ``point_instance`` go to the device for it), and those few KB a scene
+    are fetched with the step's outputs; the evaluator scores them through
+    :meth:`~..utils.metrics.InstanceAPEvaluator.add_scene_counts`, to the
+    numbers its ``add_scene`` gives from the unpacked masks.
+
     Returns the evaluator's mAP dict (``per_class``: AP@t per class id),
     with ``per_scene`` the per-scene mAP@0.5 list (None for a scene with no
     scoreable GT) and its mean, std, min and max; ``semantic_mIoU`` and
@@ -127,9 +188,11 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
     steps and to score the last batch. The last three are the summed
     durations of the pass's spans ``eval.wait`` (on the CPU around the
     step itself), ``eval.fetch`` and ``eval.score`` (with ``postprocess``,
-    ``add_scene`` and ``semantic`` under it); ``eval_compute_s``, the
-    evaluators' final ``compute``, is the duration of the span
-    ``eval.compute``.
+    ``add_scene`` and ``semantic`` under it, and the counters ``scenes``
+    and ``overlap_scenes``, the scenes scored from counts: all of them);
+    ``eval_compute_s``, the evaluators' final ``compute``, is the duration
+    of the span ``eval.compute``. The span ``eval.overlap`` holds the
+    queuing of the counts (on the CPU, their work).
 
     Under data parallel (:func:`..parallel.context.shard_context`, with
     ``loader`` a rank's share of each global batch) every rank runs the
@@ -160,12 +223,12 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
             for g, (o, labels) in scenes:
                 if num_scenes is not None and g >= num_scenes:
                     continue       # a wrap-pad duplicate of a scene already scored
-                masks, scores, pred_cls, pmask = postprocess_scene(
-                    o, 0, cfg.model.num_classes)
+                scores, pred_cls, pmask = scene_scores(o, 0, cfg.model.num_classes)
                 point_valid, pinst, psem = labels
                 with span("add_scene"):
                     gt_cls = _gt_classes_from_points(pinst, psem, point_valid)
-                    ev.add_scene(masks, scores, pred_cls, pmask, pinst, gt_cls, point_valid)
+                    ev.add_scene_counts(*(o[k][0] for k in OVERLAP_KEYS), scores, pred_cls,
+                                        pmask, gt_cls)
                 if "point_semantic_pred" in o:
                     semantic = True
                     with span("semantic"):
@@ -173,21 +236,30 @@ def run_eval(cfg: Config, source, loader, max_batches: Optional[int] = None,
                                    psem[point_valid])
                 seen += 1
                 count("scenes")
+                count("overlap_scenes")
         t_host += s.ns
 
     pending = None     # the scenes of the batch before, fetched (rank 0's, gathered)
     batches = loader if max_batches is None else itertools.islice(loader, max_batches)
-    for bi, (batch, dev) in enumerate(device_batches(batches, device, TL.BATCH_KEYS)):
+    keys = TL.BATCH_KEYS + ("point_instance",)
+    for bi, (batch, dev) in enumerate(device_batches(batches, device, keys)):
+        instance = dev.pop("point_instance")     # for the counts; the step builds no GT
         if device.type == "cuda":
             raw = TL.eval_step(cfg, model, dev)      # queued; the card starts on it
-            # the end of this step on its stream: not of device_batches'
-            # copies of the next batch, which run on a stream of their own
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
         else:
             with span("eval.wait") as s:             # the step runs inside the call
                 raw = TL.eval_step(cfg, model, dev)
             t_dev += s.ns
+        with span("eval.overlap"):
+            raw.update(zip(OVERLAP_KEYS, overlap_counts(
+                raw["point_mask_logits"] > 0, dev["valid"], instance, overlap_width(batch))))
+        del instance             # not held through the next step
+        if device.type == "cuda":
+            # the end of this step and its counts on their stream: not of
+            # device_batches' copies of the next batch, which run on a
+            # stream of their own
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
         if pending is not None:
             score(pending)   # on the host while the card runs step bi
         if device.type == "cuda":

@@ -7,6 +7,9 @@ an IoU threshold, then class-wise AP (all-point interpolation), averaged.
 Host-side numpy, as in the JAX package, whose module the port may not
 import: the classes below are that code as it is, so the two packages give
 equal numbers on equal predictions (``tests/test_torch_metrics.py``).
+``InstanceAPEvaluator.add_scene_counts`` is the port's own: a scene given
+by its prediction x GT overlap counts, made on the card, instead of its
+per-point masks, scored to the same numbers.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ class InstanceAPEvaluator:
     result also carries ``"mAP"``: AP averaged over the IoU band
     0.5:0.95:0.05, next to the fixed-threshold ``mAP@0.25`` / ``mAP@0.5``.
     Matching cost is amortized: the per-scene pred x gt IoU matrix is
-    computed once (one matmul) and every threshold replays the greedy
+    computed once (one matmul, or from the counts of
+    :meth:`add_scene_counts`) and every threshold replays the greedy
     score-ordered matching from it.
     """
 
@@ -85,6 +89,54 @@ class InstanceAPEvaluator:
             )
         )
 
+    def add_scene_counts(
+        self,
+        inter: np.ndarray,          # int [P, W] points of pred p and GT id g, valid
+        pred_sum: np.ndarray,       # int [P] valid points of pred p
+        gt_sum: np.ndarray,         # int [W] valid points of GT id g
+        pred_scores: np.ndarray,    # [P]
+        pred_classes: np.ndarray,   # int [P]
+        pred_valid: np.ndarray,     # bool [P]
+        gt_classes: np.ndarray,     # int [I] class per instance id
+    ) -> None:
+        """:meth:`add_scene` from the scene's overlap counts instead of its
+        per-point masks (``train/evaluate.py::overlap_counts``, over the
+        valid points; W above every GT id at a valid point). The GT
+        instances are the ids with ``gt_sum > 0``; the scene's cache is the
+        one :meth:`_scene_cache` makes from the masks, number for number:
+        the counts are the integers its matmul and sums give."""
+        gt_ids = np.flatnonzero(gt_sum > 0)
+        keep = self._keep(pred_scores, pred_classes, pred_valid)
+        self._preds.append(dict(cache=self._cache(
+            pred_scores, pred_classes, keep, gt_classes, gt_ids,
+            inter[np.ix_(keep, gt_ids)].astype(np.float32),
+            pred_sum[keep].astype(np.float32), gt_sum[gt_ids].astype(np.float32))))
+
+    def _keep(self, pred_scores, pred_classes, pred_valid) -> np.ndarray:
+        """The scored predictions, highest score first: valid, of a class
+        in range."""
+        order = np.argsort(-pred_scores)
+        return np.array(
+            [p for p in order
+             if pred_valid[p] and 0 <= int(pred_classes[p]) < self.num_classes],
+            np.int64)
+
+    def _cache(self, pred_scores, pred_classes, keep, gt_classes, gt_ids,
+               inter, psum, gsum) -> dict:
+        """A scene's matching cache from its kept predictions' and GT
+        instances' overlaps (f32 [Q, G]) and sizes (f32 [Q], [G])."""
+        gt_classes = np.array([int(gt_classes[g]) for g in gt_ids], np.int64)
+        gt_count = defaultdict(int)
+        for c in gt_classes:
+            if 0 <= c < self.num_classes:
+                gt_count[int(c)] += 1
+        union = psum[:, None] + gsum[None, :] - inter
+        iou = inter / np.maximum(union, 1.0)
+        return dict(
+            scores=pred_scores[keep], classes=pred_classes[keep].astype(np.int64),
+            empty=psum == 0, iou=iou, gt_classes=gt_classes, gt_count=gt_count,
+        )
+
     def _scene_cache(self, scene: dict) -> dict:
         """Score-ordered valid preds + the pred x gt IoU matrix, computed
         once per scene (a single f32 matmul over the point masks) and
@@ -93,33 +145,16 @@ class InstanceAPEvaluator:
             return scene["cache"]
         gt_ids = np.unique(scene["gt_instance"])
         gt_ids = gt_ids[gt_ids >= 0]
-        gt_classes = np.array(
-            [int(scene["gt_classes"][g]) for g in gt_ids], np.int64)
-        gt_count = defaultdict(int)
-        for c in gt_classes:
-            if 0 <= c < self.num_classes:
-                gt_count[int(c)] += 1
-        order = np.argsort(-scene["pred_scores"])
-        keep = np.array(
-            [p for p in order
-             if scene["pred_valid"][p]
-             and 0 <= int(scene["pred_classes"][p]) < self.num_classes],
-            np.int64)
+        keep = self._keep(scene["pred_scores"], scene["pred_classes"], scene["pred_valid"])
         pm = scene["pred_masks"][keep] if len(keep) else \
             np.zeros((0, scene["gt_instance"].shape[0]), bool)
         n = scene["gt_instance"].shape[0]
         gm = (np.stack([scene["gt_instance"] == g for g in gt_ids])
               if len(gt_ids) else np.zeros((0, n), bool))
         inter = pm.astype(np.float32) @ gm.astype(np.float32).T  # [Q, G]
-        psum = pm.sum(axis=1).astype(np.float32)
-        union = psum[:, None] + gm.sum(axis=1)[None, :].astype(np.float32) - inter
-        iou = inter / np.maximum(union, 1.0)
-        scene["cache"] = dict(
-            scores=scene["pred_scores"][keep],
-            classes=scene["pred_classes"][keep].astype(np.int64),
-            empty=psum == 0, iou=iou,
-            gt_classes=gt_classes, gt_count=gt_count,
-        )
+        scene["cache"] = self._cache(
+            scene["pred_scores"], scene["pred_classes"], keep, scene["gt_classes"], gt_ids,
+            inter, pm.sum(axis=1).astype(np.float32), gm.sum(axis=1).astype(np.float32))
         return scene["cache"]
 
     def _match_scene(self, scene: dict, iou_t: float):

@@ -180,20 +180,20 @@ def test_run_eval_lookahead_order(setup, monkeypatch):
     cfg, state, _, _, batches = setup
     four = batches + [{k: v.copy() for k, v in b.items()} for b in batches]
     log = []
-    step, add = TL.eval_step, E.InstanceAPEvaluator.add_scene
+    step, gt_classes = TL.eval_step, E._gt_classes_from_points
 
     def spy_step(*args):
         log.append(("step", sum(e[0] == "step" for e in log)))
         return step(*args)
 
-    def spy_add(self, *args):
-        point_valid = args[-1]          # a view of its host batch's labels
+    def spy_score(pinst, psem, point_valid):
+        # once a scene scored; point_valid is a view of its host batch's labels
         which = [i for i, b in enumerate(four) if np.shares_memory(point_valid, b["valid"])]
         log.append(("score", *which))
-        return add(self, *args)
+        return gt_classes(pinst, psem, point_valid)
 
     monkeypatch.setattr(TL, "eval_step", spy_step)
-    monkeypatch.setattr(E.InstanceAPEvaluator, "add_scene", spy_add)
+    monkeypatch.setattr(E, "_gt_classes_from_points", spy_score)
     # 8 slots, the last a wrap-pad duplicate
     res = E.run_eval(cfg, state, four, num_scenes=7)
     s, c = "step", "score"

@@ -55,6 +55,7 @@ import chip_smoke
 import tests.test_torch_kernel_cuda
 import benchmarks.profile_torch_slice
 import benchmarks.eval_step_syncs
+import benchmarks.eval_scoring_split
 import benchmarks.compare_gather_gemm
 import benchmarks.probe_gather_gemm_stages
 import benchmarks.probe_wgrad_stages

@@ -23,7 +23,12 @@ NaN), on ``benchmarks/optim_cases.py``'s cases, which ``chip_smoke.py``
 runs too. The NMS kernel is held to the plain loop ``nms_3d_reference``
 bit for bit on ``keep_idx`` and ``keep_mask``, on
 ``benchmarks/nms_cases.py``'s cases, which ``chip_smoke.py`` runs too.
+The eval pass's overlap counts (plain torch ops on the card) are held to
+the counts taken on the host from the fetched ``point_mask_bits``, and the
+mAP that ``run_eval`` scores from them to the mask path's, exactly.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -32,12 +37,16 @@ import torch
 from benchmarks import mask_map_cases as MC
 from benchmarks import nms_cases as NC
 from benchmarks import optim_cases as OC
-from sparse_rcnn_tpu_torch.config import RPNConfig
+from sparse_rcnn_tpu_torch.config import RPNConfig, load_config
+from sparse_rcnn_tpu_torch.data.pipeline import Loader
 from sparse_rcnn_tpu_torch.models import rpn as PRpn
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
 from sparse_rcnn_tpu_torch.ops import nms as PN
 from sparse_rcnn_tpu_torch.ops import optim as OPT
 from sparse_rcnn_tpu_torch.ops import sparse_conv as SC
+from sparse_rcnn_tpu_torch.train import evaluate as EV
+from sparse_rcnn_tpu_torch.train import loop as TL
+from sparse_rcnn_tpu_torch.utils.metrics import InstanceAPEvaluator
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -537,3 +546,69 @@ def test_cuda_select_proposals_one_nms_launch(cuda_device, monkeypatch):
     want = PRpn.select_proposals(obj, boxes, valid, cfg)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+CONFIG2 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "configs", "config2_scannet_2cm.yaml")
+
+
+@pytest.mark.cuda
+def test_cuda_eval_pass_counts_score_as_the_fetched_masks(cuda_device, monkeypatch):
+    """Config 2's eval form on 4 synthetic val scenes of 262,144 points in
+    batches of 2, seeded weights. Each scene's overlap counts, made on the
+    card after the step, equal the counts taken on the host from its
+    fetched ``point_mask_bits`` (the evaluator's f32 matmul and sums over
+    the valid points); ``run_eval``'s mAP dict, per class and per scene,
+    equals the dict from the same fetched outputs scored through
+    ``postprocess_scene`` and ``add_scene``. The counts queue no host
+    sync."""
+    cfg = load_config(CONFIG2, {"data": {"dataset": "synthetic", "val_scenes": 4}})
+    nc = cfg.model.num_classes
+    model = TL.build_model(cfg, cuda_device, torch.Generator().manual_seed(3))
+    batches = list(Loader(cfg, "val", train=False, threads=False))
+    assert len(batches) == 2 and batches[0]["valid"].shape == (2, 262144)
+    fetched = []
+    fetch = EV.fetch_eval_outputs
+
+    def spy(out):
+        host = fetch(out)
+        fetched.append(host)
+        return host
+    monkeypatch.setattr(EV, "fetch_eval_outputs", spy)
+    res = EV.run_eval(cfg, model, batches, num_scenes=4, per_class=True, per_scene=True)
+    assert res["scenes"] == 4 and len(fetched) == 2
+    ev = InstanceAPEvaluator(nc)
+    for out, batch in zip(fetched, batches):
+        w = EV.overlap_width(batch)
+        assert out["overlap_inter"].shape == (2, cfg.model.rpn.num_proposals, w)
+        for b in range(2):
+            o, (valid, pinst, psem) = EV._scene_slice(out, batch, b)
+            masks, scores, pred_cls, pmask = EV.postprocess_scene(o, 0, nc)
+            pm = masks[:, valid]
+            gm = np.stack([pinst[valid] == g for g in range(w)])
+            inter = pm.astype(np.float32) @ gm.astype(np.float32).T
+            np.testing.assert_array_equal(o["overlap_inter"][0].astype(np.float32), inter)
+            np.testing.assert_array_equal(o["overlap_pred_sum"][0], pm.sum(axis=1))
+            np.testing.assert_array_equal(o["overlap_gt_sum"][0], gm.sum(axis=1))
+            for got, want in zip(EV.scene_scores(o, 0, nc), (scores, pred_cls, pmask)):
+                np.testing.assert_array_equal(got, want)
+            ev.add_scene(masks, scores, pred_cls, pmask, pinst,
+                         EV._gt_classes_from_points(pinst, psem, valid), valid)
+    want = ev.compute(per_class=True)
+    np.testing.assert_equal({k: res[k] for k in want}, want)
+    np.testing.assert_equal(res["per_scene_mAP@0.5"],
+                            [round(float(x), 4) if np.isfinite(x) else None
+                             for x in ev.per_scene_map(0.5)])
+    # the counts read nothing back on the host
+    dev = TL.to_device(batches[0], cuda_device, TL.BATCH_KEYS + ("point_instance",))
+    instance = dev.pop("point_instance")
+    raw = TL.eval_step(cfg, model, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        counts = EV.overlap_counts(raw["point_mask_logits"] > 0, dev["valid"], instance,
+                                   EV.overlap_width(batches[0]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for got, k in zip(counts, EV.OVERLAP_KEYS):
+        np.testing.assert_array_equal(got.cpu().numpy(), fetched[0][k])

@@ -189,8 +189,12 @@ def test_run_eval_times_are_its_spans(config1):
     assert all(by_id[r.parent].name == "eval.score"
                for r in recs if r.name in ("postprocess", "add_scene"))
     assert names.count("add_scene") == 3
+    # the counts follow each step, a root of their own; every scene is scored from them
+    overlap = [r for r in recs if r.name == "eval.overlap"]
+    assert len(overlap) == 2 and all(r.parent is None for r in overlap)
+    assert [names[i - 1] for i, n in enumerate(names) if n == "eval.overlap"] == ["packbits"] * 2
     assert sum((r.counts or {}).get("scenes", 0) for r in recs) == 3
-    assert P.stage_table(recs)["eval.score"]["counts"] == {"scenes": 3}
+    assert P.stage_table(recs)["eval.score"]["counts"] == {"scenes": 3, "overlap_scenes": 3}
     assert names[-1] == "eval.compute" and by_id[recs[-1].id].parent is None
 
 
