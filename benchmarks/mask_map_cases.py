@@ -8,8 +8,6 @@
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from sparse_rcnn_tpu_torch.models.heads import mask_cells
@@ -41,18 +39,6 @@ MASK_MAP_CASES = [
     ("full_unit", 2, 14, 65536, "full_unit"),
 ]
 FORCED_UNIT = {"full_unit": 32768}     # points a map block takes, where not map_unit's
-
-
-@contextlib.contextmanager
-def map_unit(unit=None):
-    """The points a block of the map kernel takes fixed to ``unit`` in the
-    block (``IG.MASK_READ_MAP.unit``; None: ``IG.map_unit``'s)."""
-    old = IG.MASK_READ_MAP.unit
-    IG.MASK_READ_MAP.unit = unit
-    try:
-        yield
-    finally:
-        IG.MASK_READ_MAP.unit = old
 
 
 def mask_case(p, grid, n, kind, device, seed):
@@ -102,11 +88,10 @@ def check_mask_case(g, cell, keep, cells, unit=None) -> dict:
     twice: bit equality and run-to-run identity; the kept entries, the
     longest kept row and the kept entries that join a lane of
     ``index_put_``'s pass (not its tail). ``unit``: the map's block size
-    (:func:`map_unit`)."""
+    (None: ``IG.map_unit``'s)."""
     p = cell.shape[0]
     rows = p * cells
-    with map_unit(unit):
-        got_map, again_map = (IG.MASK_READ_MAP(cell, cells, keep) for _ in range(2))
+    got_map, again_map = (IG.mask_read_map_kernel(cell, cells, keep, unit) for _ in range(2))
     want_map = IG.mask_read_map_reference(cell, cells, keep)
     kept = int(want_map[1][-1])
 
@@ -115,7 +100,7 @@ def check_mask_case(g, cell, keep, cells, unit=None) -> dict:
 
     map_equal = all(torch.equal(a, b) for a, b in zip(head(got_map), head(want_map)))
     map_same = all(torch.equal(a, b) for a, b in zip(head(got_map), head(again_map)))
-    got, again = (IG.MASK_READ_GRAD(g, got_map, rows) for _ in range(2))
+    got, again = (IG.mask_read_grad_kernel(g, got_map, rows) for _ in range(2))
     want = IG.mask_read_grad_reference(g, cell, cells).reshape(-1)
     lanes = want_map[2][:kept]
     return {

@@ -28,9 +28,10 @@ with ``models/heads.py::mask_cells``.
 Per scene and traffic: the rows of the read over every entry (the longest,
 and the slots whose longest row holds more than half of the points, with
 their kept points and boxes); card ms of the tree's map (with ``keep``
-where the tree takes it; at each ``--units`` block size, set through
-``IG.MASK_READ_MAP.unit``, where the tree has one) and of ``mask_read_grad`` over it (10 calls between two
-CUDA events after a 1 ms spin, median of 20); whether the gradient equals
+where the tree takes it; at each ``--units`` block size, given to
+``IG.mask_read_map_kernel``, where the tree has it) and of
+``mask_read_grad`` over it (10 calls between two CUDA events after a 1 ms
+spin, median of 20); whether the gradient equals
 ``index_put_``'s over every entry bit for bit, and its sha1, which must not
 change between trees; the map's and the kernel's bounds in bytes, as
 ``chip_smoke.py`` counts them. Prints one JSON line, with the card's name and power
@@ -92,7 +93,8 @@ def scene_record(IG, g, cell, keep, cells, boxes, units) -> dict:
         return IG.mask_read_map(cell, cells, keep) if takes_keep else IG.mask_read_map(
             cell, cells)
     rmap = build_map()
-    out = IG.MASK_READ_GRAD(g, rmap, rows)
+    grad_kernel = getattr(IG, "mask_read_grad_kernel", None) or IG.MASK_READ_GRAD
+    out = grad_kernel(g, rmap, rows)
     want = IG.mask_read_grad_reference(g, cell, cells).reshape(-1)
     torch.cuda.synchronize()
     rec = {
@@ -105,7 +107,7 @@ def scene_record(IG, g, cell, keep, cells, boxes, units) -> dict:
         "bit_equal": bool(torch.equal(out.view(torch.int16), want.view(torch.int16))),
         "grad_sha1": hashlib.sha1(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
         "map_ms": time_ms(build_map),
-        "kernel_ms": time_ms(lambda: IG.MASK_READ_GRAD(g, rmap, rows)),
+        "kernel_ms": time_ms(lambda: grad_kernel(g, rmap, rows)),
         # chip_smoke.py's bounds: keep read once, cell in the proposals that keep a
         # point, the kept entries' perm and lane and the offsets written once; the
         # kernel reads the offsets and the kept entries' lane, perm and g, writes the rows
@@ -114,14 +116,10 @@ def scene_record(IG, g, cell, keep, cells, boxes, units) -> dict:
         "kernel_bound_ms": ((rows + 1) * 4 + int(kept.sum()) * 7 + rows * 2)
         / HBM_BYTES_PER_S * 1e3,
     }
-    if units and hasattr(IG.MASK_READ_MAP, "unit"):
-        rec["unit"], rec["map_ms_by_unit"] = IG.map_unit(p, n), {}
-        try:
-            for u in units:
-                IG.MASK_READ_MAP.unit = u
-                rec["map_ms_by_unit"][u] = time_ms(build_map)
-        finally:
-            IG.MASK_READ_MAP.unit = None
+    if units and hasattr(IG, "mask_read_map_kernel"):
+        rec["unit"] = IG.map_unit(p, n)
+        rec["map_ms_by_unit"] = {u: time_ms(lambda: IG.mask_read_map_kernel(cell, cells, keep, u))
+                                 for u in units}
     return rec
 
 

@@ -179,7 +179,7 @@ def run_plain(c: dict) -> tuple:
 
 
 def run_kernel(c: dict) -> tuple:
-    return PN.NMS(c["boxes"], c["scores"], c["valid"], c["threshold"], c["p"])
+    return PN.nms_3d_kernel(c["boxes"], c["scores"], c["valid"], c["threshold"], c["p"])
 
 
 def pair_ious(c: dict) -> list:

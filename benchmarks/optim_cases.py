@@ -112,9 +112,9 @@ def run_optim(lists: dict, kind: str, count: int, ema: bool, kernel: bool) -> tu
                     ema_decay=np.float32(0.9) if ema else None)
     norm = None
     if kind != "ema":
-        norm = (OPT.GLOBAL_NORM if kernel else OPT.global_norm_reference)(c["grads"])
+        norm = (OPT.global_norm_kernel if kernel else OPT.global_norm_reference)(c["grads"])
     nu = c["nu"] if kind == "adamw" else None
-    (OPT.OPTIM_APPLY if kernel else OPT.optim_apply_reference)(
+    (OPT.optim_apply_kernel if kernel else OPT.optim_apply_reference)(
         norm, c["grads"], c["params"], c["mu"], nu, c["ema"] if ema else None, step)
     return norm, c["params"], c["mu"], nu, c["ema"] if ema else None
 

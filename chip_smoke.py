@@ -230,6 +230,7 @@ from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.data import synthetic
 from sparse_rcnn_tpu_torch.data.augment import augment_scene
 from sparse_rcnn_tpu_torch import native
+from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.data.pipeline import VOXEL_KEYS, Loader, collate, device_batches
 from sparse_rcnn_tpu_torch.data.ply import write_ply
 from sparse_rcnn_tpu_torch.models import detector as DET
@@ -399,12 +400,14 @@ QUICK_REPS = {"kernel": dict(reps=10, inner=5), "plain": dict(reps=5, inner=1),
 # launches of global_norm (partials and finish) and optim_apply in one train
 # step: every config's parameter list fits one launch (OPT.MAX_TENSORS)
 OPT_PER_STEP = (2, 1)
-# forward, dgrad (the stem's input needs none), wgrad, roi_crop_grad,
-# mask_read_grad and mask_read_map (once a scene; config 1 trains on batches
-# of 1), then the optimizer's; PER_STEP[:6] is loss_and_grads' alone
-PER_STEP = (10, 9, 10, 1, 1, 1, *OPT_PER_STEP)
-COUNT_NAMES = ("forward, dgrad, wgrad, roi_crop_grad, mask_read_grad, mask_read_map, "
-               "global_norm, optim_apply")
+# the roles of NL.LAUNCHES that a path's launches are held to (nms_3d is held
+# to the select calls on the card, after phase 12): forward, dgrad (the
+# stem's input needs none), wgrad, roi_crop_grad, mask_read_grad and
+# mask_read_map (once a scene; config 1 trains on batches of 1), then the
+# optimizer's; all but the last two are loss_and_grads' alone
+ROLES = ("forward", "dgrad", "wgrad", "roi_crop_grad", "mask_read_grad", "mask_read_map",
+         "global_norm", "optim_apply")
+PER_STEP = dict(zip(ROLES, (10, 9, 10, 1, 1, 1, *OPT_PER_STEP)))
 # card against CPU, one config-1 step, per parameter relative to the
 # largest entry of its gradient. Outside the RoI head: with the mask weight
 # 0, f32 sums of up to 32768*27 products in other orders through ~20
@@ -481,16 +484,13 @@ def card_info() -> str:
 
 
 def build() -> None:
-    """The four CUDA libraries, one ``nvcc`` each, started together."""
+    """The package's libraries (``NL.LIBRARIES``), one compiler each, started
+    together, then loaded."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        built = list(pool.map(lambda a: sc.build_kernel(*a),
-                              [(sc._SRC, "sparse_conv"), (IG._SRC, "index_grad"),
-                               (OPT._SRC, "optim", OPT._LIB.flags),
-                               (PN._SRC, "nms", PN._LIB.flags)]))
-    for k in (sc.KERNEL, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_MAP, IG.MASK_READ_GRAD,
-              OPT.GLOBAL_NORM, OPT.OPTIM_APPLY, PN.NMS):
-        k.load()
+    with concurrent.futures.ThreadPoolExecutor(len(NL.LIBRARIES)) as pool:
+        built = list(pool.map(NL.build, NL.LIBRARIES))
+    for lib in NL.LIBRARIES:
+        NL.load(lib)
     log(f"[phase 2] built {', '.join(os.path.relpath(so, ROOT) for so, _ in built)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for _, messages in built:
@@ -553,9 +553,9 @@ def library_fn(feats, idx, w):
     return lambda: torch.matmul(fz[ix].reshape(b * m_out, k * cin), w2)
 
 
-def measure_conv(name, feats, idx, w, kernel=sc.KERNEL, reps=None) -> dict:
-    """The gather-GEMM ``kernel`` (the forward, or the dgrad on g, t_idx and
-    Wᵀ) against its plain version on these inputs, with kernel, plain,
+def measure_conv(name, feats, idx, w, role="forward", reps=None) -> dict:
+    """The gather-GEMM kernel in ``role`` (the forward, or the dgrad on g,
+    t_idx and Wᵀ) against its plain version on these inputs, with kernel, plain,
     library and bound times (``reps``: the ``time_ms`` arguments of each,
     by default ``REPS``). The bound counts the bytes of idx, feats, W and
     out, each once, and the products of this idx's live entries."""
@@ -564,7 +564,7 @@ def measure_conv(name, feats, idx, w, kernel=sc.KERNEL, reps=None) -> dict:
     b, m_in, cin = feats.shape
     k, _, cout = w.shape
     m_out = idx.shape[-1]
-    got = kernel(feats, idx, w)
+    got = sc.conv_kernel(feats, idx, w, role)
     want = sc.sparse_conv_reference(feats, idx, w)
     lib = library_fn(feats, idx, w)
     torch.cuda.synchronize()
@@ -582,7 +582,7 @@ def measure_conv(name, feats, idx, w, kernel=sc.KERNEL, reps=None) -> dict:
         "Cin": cin, "Cout": cout, "M_in": m_in, "M_out": m_out,
         "live_taps": nnz, "dead_pair_share": dead_pair_share(idx, m_in),
         "max_abs_err": err, "tol": TOL[dtype], "ok": bool(ok),
-        "kernel_ms": time_ms(lambda: kernel(feats, idx, w), **reps["kernel"]),
+        "kernel_ms": time_ms(lambda: sc.conv_kernel(feats, idx, w, role), **reps["kernel"]),
         "plain_ms": time_ms(lambda: sc.sparse_conv_reference(feats, idx, w), **reps["plain"]),
         "library_ms": time_ms(lib, **reps["library"]),
         "bound_ms": max(t_bytes, t_ops),
@@ -672,11 +672,11 @@ def card_vs_cpu(cfg, m_gpu, m_cpu, batches, per_forward: int) -> dict:
     difference of each float output."""
     worst = {}
     for i, batch in enumerate(batches):
-        before = sc.KERNEL.launches
+        before = NL.LAUNCHES["forward"]
         tab_g, res_g = run_scene(cfg, m_gpu, batch, DEVICE)
         torch.cuda.synchronize()
-        if sc.KERNEL.launches - before != per_forward:
-            raise AssertionError(f"scene {i}: {sc.KERNEL.launches - before} launches, "
+        if NL.LAUNCHES["forward"] - before != per_forward:
+            raise AssertionError(f"scene {i}: {NL.LAUNCHES['forward'] - before} launches, "
                                  f"not {per_forward}")
         tab_c, res_c = run_scene(cfg, m_cpu, batch, "cpu")
         for key in tab_c:
@@ -810,14 +810,15 @@ def phase_slice(out_dir: str, no_ckpt: str) -> tuple:
         f"{n_scenes} val scenes, seeded init train.seed={cfg.train.seed}")
 
     # the main path, through the entry point a user calls
-    reset_counts()
+    before = dict(NL.LAUNCHES)
     infer.main(["--config", CONFIG1, "--num-scenes", str(n_scenes), "--set",
                 f"train.checkpoint_dir={no_ckpt}", "--out-dir", os.path.join(out_dir, "infer"),
                 "--device", DEVICE])
     torch.cuda.synchronize()
-    launches = sc.KERNEL.launches
-    if any(counts()[1:]):
-        raise AssertionError(f"inference launched backward or optimizer kernels: {counts()}")
+    got = launched(before)
+    launches = got.pop("forward")
+    if any(got.values()):
+        raise AssertionError(f"inference launched backward or optimizer kernels: {got}")
     forwards = -(-n_scenes // cfg.data.batch_size)
     log(f"  sparse_conv launches in infer.main: {launches} "
         f"({forwards} forwards, 10 expected per forward)")
@@ -859,10 +860,10 @@ def phase_golden() -> int:
     model.load_state_dict(from_flax(*unflatten_variables(flat)))
     kw = dict(spec["scene"])
     batch = synthetic.generate_batch(kw.pop("seed"), kw.pop("batch_size"), **kw)
-    before = sc.KERNEL.launches
+    before = NL.LAUNCHES["forward"]
     out = infer.to_host(TL.eval_step(cfg, model, TL.to_device(batch, DEVICE)))
     torch.cuda.synchronize()
-    launches = sc.KERNEL.launches - before
+    launches = NL.LAUNCHES["forward"] - before
     inst, scores, pred_cls, pmask = infer.scene_result(out, 0, cfg.model.num_classes)
     want = np.load(GOLDEN)
     np.testing.assert_array_equal(pred_cls.astype(np.int32), want["pred_cls"])
@@ -907,7 +908,7 @@ def bwd_inputs(k, cin, cout, m_in, m_out, dtype, seed, live_rows=(1.0,)):
 def measure_dgrad(name, g, t_idx, w, reps=None) -> dict:
     """The dgrad: the gather-GEMM kernel on (g, t_idx, Wᵀ), measured as the
     forward is (``measure_conv``)."""
-    rec = measure_conv(name, g, t_idx, w.transpose(1, 2).contiguous(), kernel=sc.DGRAD,
+    rec = measure_conv(name, g, t_idx, w.transpose(1, 2).contiguous(), role="dgrad",
                        reps=reps)
     rec["role"] = "dgrad"
     return rec
@@ -940,8 +941,8 @@ def measure_wgrad(name, feats, t_idx, g, reps=None) -> dict:
     b, m_in, cin = feats.shape
     cout = g.shape[2]
     k = t_idx.shape[1]
-    got = sc.WGRAD(feats, t_idx, g)
-    again = sc.WGRAD(feats, t_idx, g)
+    got = sc.wgrad_kernel(feats, t_idx, g)
+    again = sc.wgrad_kernel(feats, t_idx, g)
     want = sc.sparse_conv_wgrad_reference(feats, t_idx, g)
     lib = wgrad_library_fn(feats, t_idx, g)
     torch.cuda.synchronize()
@@ -961,7 +962,7 @@ def measure_wgrad(name, feats, t_idx, g, reps=None) -> dict:
         "dead_pair_share": dead_pair_share(t_idx, g.shape[1], WGRAD_STAGE), "max_abs_err": err,
         "tol": {"rtol": WGRAD_RTOL, "atol": WGRAD_RTOL * scale},
         "bit_identical": same, "ok": bool(ok),
-        "kernel_ms": time_ms(lambda: sc.WGRAD(feats, t_idx, g), **reps["kernel"]),
+        "kernel_ms": time_ms(lambda: sc.wgrad_kernel(feats, t_idx, g), **reps["kernel"]),
         "plain_ms": time_ms(lambda: sc.sparse_conv_wgrad_reference(feats, t_idx, g),
                             **reps["plain"]),
         "library_ms": time_ms(lib, **reps["library"]),
@@ -1064,7 +1065,7 @@ def measure_roi_grad(name, g, w, idx, m, reps=None) -> dict:
     the timing. Bound: g, the live corners' w and map entries, the offsets
     and d_feats, each once."""
     rmap = IG.roi_crop_map(idx, m)
-    got, again = (IG.ROI_CROP_GRAD(g, w, rmap, m) for _ in range(2))
+    got, again = (IG.roi_crop_grad_kernel(g, w, rmap, m) for _ in range(2))
     want = IG.roi_crop_grad_reference(g, w, idx, m)
     v = (g[None] * w[..., None]) * (idx >= 0)[..., None].to(g.dtype)
     safe = idx.clamp(0, m - 1).to(torch.int64)
@@ -1073,7 +1074,7 @@ def measure_roi_grad(name, g, w, idx, m, reps=None) -> dict:
     esz = g.element_size()
     nbytes = g.numel() * esz + live * (esz + 4) + (m + 1) * 4 + m * g.shape[1] * esz
     rec = index_grad_record(name, "roi_crop_grad", got, again, want, nbytes, {
-        "kernel": lambda: IG.ROI_CROP_GRAD(g, w, rmap, m),
+        "kernel": lambda: IG.roi_crop_grad_kernel(g, w, rmap, m),
         "map": lambda: IG.roi_crop_map(idx, m),
         "plain": lambda: IG.roi_crop_grad_reference(g, w, idx, m),
         "library": lambda: buf.index_put_((safe,), v, accumulate=True)},
@@ -1115,18 +1116,14 @@ def measure_mask_grad(name, g, cell, keep, cells, reps=None, unit=None) -> list:
     offsets written once) and ``mask_read_grad`` over the kernel's map
     (against ``index_put_`` over every entry; library: that ``index_put_``
     alone; bound: the offsets and the kept entries' lane, perm and g read
-    once, the rows written once). ``unit``: the map's block size
-    (``MC.map_unit``; by default ``IG.map_unit``'s)."""
-    with MC.map_unit(unit):
-        return _measure_mask_grad(name, g, cell, keep, cells, reps or REPS)
-
-
-def _measure_mask_grad(name, g, cell, keep, cells, reps) -> list:
+    once, the rows written once). ``unit``: the map's block size (by
+    default ``IG.map_unit``'s)."""
+    reps = reps or REPS
     p, n = cell.shape
     rows = p * cells
-    chk = MC.check_mask_case(g, cell, keep, cells)
-    rmap = IG.MASK_READ_MAP(cell, cells, keep)
-    got, again = (IG.MASK_READ_GRAD(g, rmap, rows) for _ in range(2))
+    chk = MC.check_mask_case(g, cell, keep, cells, unit)
+    rmap = IG.mask_read_map_kernel(cell, cells, keep, unit)
+    got, again = (IG.mask_read_grad_kernel(g, rmap, rows) for _ in range(2))
     want = IG.mask_read_grad_reference(g, cell, cells).reshape(-1)
     prow = torch.arange(p, device=g.device)[:, None]
     ix = cell.to(torch.int64)
@@ -1139,8 +1136,8 @@ def _measure_mask_grad(name, g, cell, keep, cells, reps) -> list:
     runs = full_runs(cell, keep, cells)
     grad = index_grad_record(name, "mask_read_grad", got, again, want,
                              (rows + 1) * 4 + kept * (1 + 4 + 2) + rows * 2, {
-        "kernel": lambda: IG.MASK_READ_GRAD(g, rmap, rows),
-        "map": lambda: IG.MASK_READ_MAP(cell, cells, keep),
+        "kernel": lambda: IG.mask_read_grad_kernel(g, rmap, rows),
+        "map": lambda: IG.mask_read_map_kernel(cell, cells, keep, unit),
         "plain": lambda: IG.mask_read_grad_reference(g, cell, cells),
         "library": lambda: buf.index_put_((prow, ix), g, accumulate=True)},
         runs["longest_kept_row"], reps)
@@ -1151,14 +1148,14 @@ def _measure_mask_grad(name, g, cell, keep, cells, reps) -> list:
             "bit_equal": chk["map_bit_equal"], "bit_identical": chk["map_bit_identical"],
             **{f"{k}_ms": time_ms(fn, **reps["plain" if k != "kernel" else "kernel"])
                for k, fn in {
-                   "kernel": lambda: IG.MASK_READ_MAP(cell, cells, keep),
+                   "kernel": lambda: IG.mask_read_map_kernel(cell, cells, keep, unit),
                    "plain": lambda: IG.mask_read_map_reference(cell, cells, keep),
                    "parent": lambda: IG.row_map(full_key, rows),
                    "library": lambda: torch.sort(key, stable=True)}.items()},
             "bytes": (p * n if keep is not None else 0) + active * n * 4 + kept * (4 + 1)
             + (rows + 1) * 4, "bound_by": "bytes", "flops": 0,
             "P": p, "N": n, "cells": cells, "kept": kept, "proposals_keeping": active,
-            "unit": IG.MASK_READ_MAP.unit or IG.map_unit(p, n)}
+            "unit": unit or IG.map_unit(p, n)}
     mrec["bound_ms"] = mrec["bytes"] / HBM_BYTES_PER_S * 1e3
     mrec["ok"] = mrec["bit_equal"] and mrec["bit_identical"]
     log(f"  mask_read_map  {name:22s} kept {kept} of {p * n}: kernel_ms={mrec['kernel_ms']:.4f} "
@@ -1308,7 +1305,7 @@ def optim_times(lists, kind, count, ema, nbytes) -> dict:
     e = e if ema else None
     step = OPT.Step(kind, lr=3e-3, count=count, clip=10.0, weight_decay=0.05,
                     ema_decay=np.float32(0.9) if ema else None)
-    norm = OPT.GLOBAL_NORM(g)
+    norm = OPT.global_norm_kernel(g)
     gl = [x.contiguous() for x in g]     # torch's fused AdamW wants one layout
     steps = [torch.ones((), device=DEVICE) for _ in p]
     lib = dict(lr=3e-3, beta1=OPT.B1, beta2=OPT.B2, weight_decay=0.05, eps=OPT.EPS,
@@ -1317,15 +1314,15 @@ def optim_times(lists, kind, count, ema, nbytes) -> dict:
     # the plain chain some 20: spin long enough that every run is queued
     q = {k: {**v, "spin": OPTIM_SPIN_CYCLES} for k, v in QUICK_REPS.items()}
     out = {
-        "norm_host_ms": host_ms(lambda: OPT.GLOBAL_NORM(g)),
-        "apply_host_ms": host_ms(lambda: OPT.OPTIM_APPLY(norm, g, p, mu, nu, e, step)),
-        "norm_kernel_ms": time_ms(lambda: OPT.GLOBAL_NORM(g), **q["kernel"]),
+        "norm_host_ms": host_ms(lambda: OPT.global_norm_kernel(g)),
+        "apply_host_ms": host_ms(lambda: OPT.optim_apply_kernel(norm, g, p, mu, nu, e, step)),
+        "norm_kernel_ms": time_ms(lambda: OPT.global_norm_kernel(g), **q["kernel"]),
         "norm_plain_ms": time_ms(lambda: OPT.global_norm_reference(g), **q["plain"]),
         "norm_parent_ms": time_ms(lambda: torch.sqrt(sum(torch.sum(t * t) for t in g)),
                                   **q["plain"]),
         "norm_library_ms": time_ms(lambda: torch.nn.utils.get_total_norm(g, foreach=True),
                                    **q["plain"]),
-        "apply_kernel_ms": time_ms(lambda: OPT.OPTIM_APPLY(norm, g, p, mu, nu, e, step),
+        "apply_kernel_ms": time_ms(lambda: OPT.optim_apply_kernel(norm, g, p, mu, nu, e, step),
                                    **q["kernel"]),
         "apply_plain_ms": time_ms(lambda: OPT.optim_apply_reference(norm, g, p, mu, nu, e,
                                                                     step), **q["plain"]),
@@ -1385,14 +1382,14 @@ def nms_record(name: str, seed: int, timed: bool = False) -> dict:
     "prod" cases' pair IoUs as ``box_iou_3d`` gives them on the card;
     ``timed``, kernel, plain, host and bound times too."""
     c = NC.nms_case(name, DEVICE, seed)
-    before = PN.NMS.launches
+    before = NL.LAUNCHES["nms_3d"]
     got, again = NC.run_kernel(c), NC.run_kernel(c)
     want = NC.run_plain(c)
     torch.cuda.synchronize()
     b, n = c["scores"].shape
     rec = {"case": name, "scenes": b, "candidates": n, "outputs": c["p"],
            "threshold": c["threshold"], "kept": int(got[1].sum()),
-           "launches_per_call": (PN.NMS.launches - before) / 2,
+           "launches_per_call": (NL.LAUNCHES["nms_3d"] - before) / 2,
            "bit_equal": all(torch.equal(g, w) for g, w in zip(got, want)),
            "bit_identical": all(torch.equal(g, a) for g, a in zip(got, again))}
     if "pairs" in c:
@@ -1460,13 +1457,13 @@ def nms_step_launches() -> dict:
     def model():
         return TL.build_model(cfg, DEVICE, torch.Generator().manual_seed(cfg.train.seed))
     out = {}
-    before = PN.NMS.launches
+    before = NL.LAUNCHES["nms_3d"]
     TL.eval_step(cfg, TL.eval_model(cfg, model()), TL.to_device(batch, DEVICE))
-    out["config1 eval step"] = PN.NMS.launches - before
+    out["config1 eval step"] = NL.LAUNCHES["nms_3d"] - before
     state = TL.init_state(cfg, model=model())
-    before = PN.NMS.launches
+    before = NL.LAUNCHES["nms_3d"]
     TL.train_step(cfg, state, TL.to_device(batch, DEVICE, TL.TRAIN_KEYS))
-    out["config1 train step"] = PN.NMS.launches - before
+    out["config1 train step"] = NL.LAUNCHES["nms_3d"] - before
     torch.cuda.synchronize()
     log(f"  NMS launches: {json.dumps(out)}")
     if out != {"config1 eval step": 1, "config1 train step": 1}:
@@ -1517,28 +1514,20 @@ def train_step_syncs(cfg, state, batches) -> dict:
 # phase 6: the config-1 training slice on the card, against the CPU
 
 
-KERNELS = (sc.KERNEL, sc.DGRAD, sc.WGRAD, IG.ROI_CROP_GRAD, IG.MASK_READ_GRAD,
-           IG.MASK_READ_MAP, OPT.GLOBAL_NORM, OPT.OPTIM_APPLY)
-
-
-def counts() -> tuple:
-    """Launches of ``KERNELS``, in the order of ``COUNT_NAMES``."""
-    return tuple(k.launches for k in KERNELS)
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+def launched(before: dict) -> dict:
+    """The launches of each of ``ROLES`` since ``before``, a copy of
+    ``NL.LAUNCHES``."""
+    return {r: NL.LAUNCHES[r] - before.get(r, 0) for r in ROLES}
 
 
 def want_launches(fwd: int, dgrad: int = 0, wgrad: int = 0, scene_steps: int = 0,
-                  steps: int = 0) -> tuple:
-    """The ``counts()`` a path of ``steps`` train steps should give: the two
+                  steps: int = 0) -> dict:
+    """The ``launched`` a path of ``steps`` train steps should give: the two
     indexing backwards and the mask read's map launch once per scene per
     train step, the optimizer's kernels ``OPT_PER_STEP`` a step; none of them
     in an eval."""
-    return (fwd, dgrad, wgrad, scene_steps, scene_steps, scene_steps,
-            OPT_PER_STEP[0] * steps, OPT_PER_STEP[1] * steps)
+    return dict(zip(ROLES, (fwd, dgrad, wgrad, scene_steps, scene_steps, scene_steps,
+                            OPT_PER_STEP[0] * steps, OPT_PER_STEP[1] * steps)))
 
 
 def grad_errors(grads_a, grads_b, names) -> dict:
@@ -1578,7 +1567,7 @@ def main_path_backward(cfg, model, batch) -> tuple:
                                     "conv_dgrad", "conv_wgrad", "roi_crop_grad",
                                     "mask_read_grad", "mask_read")
     mg = mask_calls(reads, mg)
-    if (len(dg), len(wg), len(rg), len(mg)) != PER_STEP[1:5]:
+    if [len(dg), len(wg), len(rg), len(mg)] != [PER_STEP[r] for r in ROLES[1:5]]:
         raise AssertionError(f"{len(dg)} dgrad, {len(wg)} wgrad, {len(rg)} roi_crop_grad and "
                              f"{len(mg)} mask_read_grad calls in one step")
     log("  dgrad and wgrad kernels vs plain versions on the inputs of the main path "
@@ -1611,16 +1600,16 @@ def phase_train(out_dir: str) -> dict:
         os.remove(log_path)
 
     # the main path, through the entry point a user calls
-    reset_counts()
+    before = dict(NL.LAUNCHES)
     ckpt = os.path.join(out_dir, "ckpt_train")
     shutil.rmtree(ckpt, ignore_errors=True)
     train_cli.main(["--config", CONFIG1, "--set", f"train.total_steps={TRAIN_STEPS}",
                     "--set", "train.log_every=1", "--set", f"train.checkpoint_dir={ckpt}",
                     "--device", DEVICE, "--log-file", log_path])
     torch.cuda.synchronize()
-    launches = counts()
-    want = tuple(TRAIN_STEPS * n for n in PER_STEP)
-    log(f"  launches in train.main over {TRAIN_STEPS} steps ({COUNT_NAMES}): {launches}, "
+    launches = launched(before)
+    want = {r: TRAIN_STEPS * n for r, n in PER_STEP.items()}
+    log(f"  launches in train.main over {TRAIN_STEPS} steps: {launches}, "
         f"expected {want}")
     if launches != want:
         raise AssertionError(f"train.main launched {launches}, expected {want}")
@@ -1644,14 +1633,14 @@ def phase_train(out_dir: str) -> dict:
         res = {}
         for dev in (DEVICE, "cpu"):
             model = copy.deepcopy(init).to(dev)
-            before = counts()
+            before = dict(NL.LAUNCHES)
             res[dev] = TL.loss_and_grads(cfg_w, model, TL.to_device(batches[0], dev,
                                                                      TL.TRAIN_KEYS))
             torch.cuda.synchronize()
-            delta = tuple(a - b for a, b in zip(counts(), before))
-            if dev == DEVICE and delta != PER_STEP[:6] + (0, 0):
-                raise AssertionError(f"one loss_and_grads launched {delta}, expected "
-                                     f"{PER_STEP[:6]} and no optimizer kernel")
+            delta = launched(before)
+            want = {**PER_STEP, "global_norm": 0, "optim_apply": 0}
+            if dev == DEVICE and delta != want:
+                raise AssertionError(f"one loss_and_grads launched {delta}, expected {want}")
         (tg, pg, gg, _), (tc, pc, gc, _) = res[DEVICE], res["cpu"]
         for k in pc:
             np.testing.assert_allclose(float(pg[k]), float(pc[k]), rtol=1e-4,
@@ -1943,33 +1932,35 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
     rep = {"sparse_convs": {"eval": n_eval, "train": n_train}}
 
     # the main paths, through the entry points a user calls
-    reset_counts()
+    before = dict(NL.LAUNCHES)
     infer.main(["--config", CONFIG2, *sets, "--set",
                 f"train.checkpoint_dir={os.path.join(tmp_dir, 'none')}",
                 "--num-scenes", str(cfg.data.batch_size),
                 "--out-dir", os.path.join(out_dir, "infer_config2"), "--device", DEVICE])
     torch.cuda.synchronize()
-    rep["launches_infer"] = counts()
-    log(f"  launches in infer.main, one batch ({COUNT_NAMES}): {counts()}, expected "
+    rep["launches_infer"] = launched(before)
+    log(f"  launches in infer.main, one batch: {rep['launches_infer']}, expected "
         f"{want_launches(n_eval)}")
-    if counts() != want_launches(n_eval):
-        raise AssertionError(f"config-2 infer.main launched {counts()}")
+    if rep["launches_infer"] != want_launches(n_eval):
+        raise AssertionError(f"config-2 infer.main launched {rep['launches_infer']}")
     log_path = os.path.join(out_dir, "train_log_config2.jsonl")
     if os.path.exists(log_path):
         os.remove(log_path)
-    reset_counts()
+    before = dict(NL.LAUNCHES)
     state = train_cli.main(["--config", CONFIG2, *sets, "--set",
                             f"train.total_steps={C2_TRAIN_STEPS}", "--set", "train.log_every=1",
                             "--set", f"train.checkpoint_dir={os.path.join(tmp_dir, 'phase8')}",
                             "--device", DEVICE, "--log-file", log_path])
     torch.cuda.synchronize()
-    rep["launches_train"] = counts()
+    rep["launches_train"] = launched(before)
     want = want_launches(C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * (n_train - 1),
                          C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * cfg.data.batch_size,
                          steps=C2_TRAIN_STEPS)
-    log(f"  launches in train.main over {C2_TRAIN_STEPS} steps: {counts()}, expected {want}")
-    if counts() != want:
-        raise AssertionError(f"config-2 train.main launched {counts()}, expected {want}")
+    log(f"  launches in train.main over {C2_TRAIN_STEPS} steps: {rep['launches_train']}, "
+        f"expected {want}")
+    if rep["launches_train"] != want:
+        raise AssertionError(f"config-2 train.main launched {rep['launches_train']}, "
+                             f"expected {want}")
     with open(log_path) as f:
         steps = [r for r in map(json.loads, f) if r["kind"] == "train"]
     keys = ("rpn_obj", "rpn_box", "roi_cls", "roi_mask", "semantic", "total", "grad_norm")
@@ -2043,8 +2034,8 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
         lambda: TL.loss_and_grads(tcfg, copy.deepcopy(init), trb[0]), "conv_forward",
         "conv_dgrad", "conv_wgrad", "roi_crop_grad", "mask_read_grad", "mask_read")
     mg = mask_calls(reads, mg)
-    if (len(fw), len(dg), len(wg), len(rg), len(mg)) != want_launches(n_train, n_train - 1,
-                                                                      n_train, bs)[:5]:
+    if [len(fw), len(dg), len(wg), len(rg), len(mg)] != list(
+            want_launches(n_train, n_train - 1, n_train, bs).values())[:5]:
         raise AssertionError(f"{len(fw)} forward, {len(dg)} dgrad, {len(wg)} wgrad, {len(rg)} "
                              f"roi_crop_grad and {len(mg)} mask_read_grad calls in one step")
     log(f"  forward, dgrad and wgrad kernels vs plain versions on the inputs of one config-2 "
@@ -2150,13 +2141,12 @@ def per_scene_split(res: dict) -> dict:
 
 
 def run_cli(fn, argv, what: str):
-    """``fn(argv)`` with the launch counts set to 0 just before it; returns
-    (its result, the counts just after)."""
-    reset_counts()
+    """``fn(argv)``; returns (its result, its launches of ``ROLES``)."""
+    before = dict(NL.LAUNCHES)
     out = fn(argv)
     torch.cuda.synchronize()
-    got = counts()
-    log(f"  {what}: launches ({COUNT_NAMES}) {got}")
+    got = launched(before)
+    log(f"  {what}: launches {got}")
     return out, got
 
 
@@ -2339,8 +2329,9 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
                                       "train.total_steps=4", "--device", DEVICE,
                                       "--log-file", log_path], "config1 train.main, 4 steps")
     evals_fwd = 2 * n // cfg.data.batch_size        # 2 evals of 3 scenes, batch 1
-    expect(got, want_launches(4 * PER_STEP[0] + PER_STEP[0] * evals_fwd, 4 * PER_STEP[1],
-                              4 * PER_STEP[2], 4 * PER_STEP[3], steps=4),
+    expect(got, want_launches(4 * PER_STEP["forward"] + PER_STEP["forward"] * evals_fwd,
+                              4 * PER_STEP["dgrad"], 4 * PER_STEP["wgrad"],
+                              4 * PER_STEP["roi_crop_grad"], steps=4),
            "config1 train.main launches")
     rep["launches"]["config1 train.main (4 steps, 2 evals)"] = got
     lines = jsonl(log_path)
@@ -2385,8 +2376,9 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
     _, got = run_cli(train_cli.main, ["--config", CONFIG1, *sets, "--set",
                                       "train.total_steps=6", "--device", DEVICE, "--resume",
                                       "--log-file", log_path], "config1 train.main --resume")
-    expect(got, want_launches(2 * PER_STEP[0] + PER_STEP[0] * n, 2 * PER_STEP[1],
-                              2 * PER_STEP[2], 2 * PER_STEP[3], steps=2),
+    expect(got, want_launches(2 * PER_STEP["forward"] + PER_STEP["forward"] * n,
+                              2 * PER_STEP["dgrad"], 2 * PER_STEP["wgrad"],
+                              2 * PER_STEP["roi_crop_grad"], steps=2),
            "config1 train.main --resume launches")
     rep["launches"]["config1 train.main --resume (2 steps, 1 eval)"] = got
     lines = jsonl(log_path)
@@ -2396,7 +2388,7 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
         raise AssertionError(f"resume: {resumed}, steps after it {after}")
     res1, got = run_cli(eval_cli.main, ["--config", CONFIG1, *sets, "--best", "--per-scene",
                                         "--device", DEVICE], "config1 eval.main --best")
-    expect(got, want_launches(PER_STEP[0] * n), "config1 eval.main launches")
+    expect(got, want_launches(PER_STEP["forward"] * n), "config1 eval.main launches")
     rep["launches"]["config1 eval.main --best (3 scenes)"] = got
     if res1["scenes"] != n or len(res1["per_scene_mAP@0.5"]) != n:
         raise AssertionError(f"config1 eval.main: {res1}")
@@ -2404,7 +2396,7 @@ def phase_eval_checkpoints(out_dir: str, tmp_dir: str, smi: str, c2_convs) -> di
     _, got = run_cli(infer.main, ["--config", CONFIG1, *sets, "--best", "--num-scenes", str(n),
                                   "--out-dir", inf_dir, "--device", DEVICE],
                      "config1 infer.main --best")
-    expect(got, want_launches(PER_STEP[0] * n), "config1 infer.main launches")
+    expect(got, want_launches(PER_STEP["forward"] * n), "config1 infer.main launches")
     rep["launches"]["config1 infer.main --best (3 scenes)"] = got
     for i in range(n):
         with np.load(os.path.join(inf_dir, f"scene{i:04d}.npz")) as f:
@@ -2990,11 +2982,11 @@ def dp_step_record(world, cfg, init, batch) -> tuple:
     state = TL.init_state(cfg, model=copy.deepcopy(init))
     step = DP.make_parallel_train_step(cfg, world)
     torch.cuda.synchronize()
-    reset_counts()
+    before = dict(NL.LAUNCHES)
     DPC.STATS.calls = DPC.STATS.bytes = 0
     _, m = step(state, batch)
     torch.cuda.synchronize()
-    return state, m, counts(), (DPC.STATS.calls, DPC.STATS.bytes)
+    return state, m, launched(before), (DPC.STATS.calls, DPC.STATS.bytes)
 
 
 def state_errors(got, want) -> dict:
@@ -3133,10 +3125,10 @@ def dp_world2(out_dir: str, tmp_dir: str) -> dict:
             continue
 
         # the in-training eval, and the packed masks of one val batch
-        reset_counts()
+        before = dict(NL.LAUNCHES)
         res = train_cli.evaluate(cfg, state, JsonlLogger(enabled=False), world)
         torch.cuda.synchronize()
-        rec["eval_launches"] = counts()
+        rec["eval_launches"] = launched(before)
         evals_fwd = -(-EVAL_SCENES // 2)
         expect(rec["eval_launches"], want_launches(evals_fwd * n_eval),
                "config5 world-2 eval launches")
@@ -3287,7 +3279,7 @@ def phase_data_parallel(out_dir: str, tmp_dir: str, smi: str) -> dict:
         **{f"config5 DP world 2 gloo rank {r['rank']}, eval (3 scenes)": r["eval_launches"]
            for r in w2}}
     for k, v in launches.items():
-        if min(v[:1] if "eval" in k else v) == 0:
+        if min([v["forward"]] if "eval" in k else v.values()) == 0:
             raise AssertionError(f"{k}: a kernel of the path never launched: {v}")
     summary = {
         "card": smi,
@@ -3589,7 +3581,7 @@ def kernel_entry(name, source, replaces, launches, recs_all, main_path, library,
             "config1": totals(config1), "pool_dropout": totals(pool)}
 
 
-def index_entry(name, replaces, launches, recs_all, main_path, config1, paths, col,
+def index_entry(name, replaces, launches, recs_all, main_path, config1, paths,
                 library="the plain version's own index_put_(accumulate=True)") -> dict:
     """One indexing backward (or the mask read's map) of the ``kernels``
     line, as ``kernel_entry``'s (config 2 at the top level, a record a
@@ -3605,7 +3597,7 @@ def index_entry(name, replaces, launches, recs_all, main_path, config1, paths, c
         return {k: sum(r[k] for r in rs) for k in ("map_ms", "parent_ms") if k in rs[0]}
     return {"name": name, "route": "cuda",
             "source": "sparse_rcnn_tpu_torch/ops/csrc/index_grad.cu", "replaces": replaces,
-            "launches": launches, **top, **maps(main_path),
+            "launches": launches[name], **top, **maps(main_path),
             "bit_equal": all(r["bit_equal"] and r["bit_identical"]
                              for r in recs_all + main_path + config1),
             "library": library,
@@ -3614,10 +3606,10 @@ def index_entry(name, replaces, launches, recs_all, main_path, config1, paths, c
                    "step (the crop's rows f32 at config 1, bf16 at config 2; the mask read "
                    "bf16 at both)",
             "config1": {**totals(config1), **maps(config1)},
-            "launches_by_path": {k: v[col] for k, v in paths.items()}}
+            "launches_by_path": {k: v[name] for k, v in paths.items()}}
 
 
-def optim_entry(name, part, replaces, launches, recs, shapes, paths, col) -> dict:
+def optim_entry(name, part, replaces, launches, recs, shapes, paths) -> dict:
     """One optimizer kernel of the ``kernels`` line (``part`` "norm" or
     "apply"): config 2's shapes at the top level, config 1's under
     ``config1``; bit-equality over every case."""
@@ -3630,7 +3622,7 @@ def optim_entry(name, part, replaces, launches, recs, shapes, paths, col) -> dic
                    {"stage_library_ms": r["stage_library_ms"]})}
     every = recs + list(shapes.values())
     return {"name": name, "route": "cuda", "source": "sparse_rcnn_tpu_torch/ops/csrc/optim.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": launches[name],
             **fig(shapes["config2_scannet_2cm"]),
             "max_abs_err": max(r["max_abs_err"] for r in every),
             "bit_equal": all(r["bit_equal"] and r["bit_identical"] for r in every),
@@ -3640,7 +3632,7 @@ def optim_entry(name, part, replaces, launches, recs, shapes, paths, col) -> dic
                    "entries; AdamW, clip triggered, no EMA); launches: config-2 train.main, "
                    f"{C2_TRAIN_STEPS} steps; config1: config 1's 48 shapes",
             "config1": fig(shapes["config1_tiny_5cm"]),
-            "launches_by_path": {k: v[col] for k, v in paths.items()}}
+            "launches_by_path": {k: v[name] for k, v in paths.items()}}
 
 
 def main(argv=None) -> int:
@@ -3669,7 +3661,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     optim_recs, optim_shapes = phase_optim()
     nms_recs, nms_timed = phase_nms()
     selects = count_selects()
-    nms_before = PN.NMS.launches
+    nms_before = NL.LAUNCHES["nms_3d"]
     launches, split, main_path = phase_slice(args.out_dir, os.path.join(tmp_dir, "none"))
     dead = next(r for r in recs if (r["conv"], r["dtype"]) == ("all_dead", "float32"))
     enc = next(r for r in main_path if r["conv"] == "enc0.conv1")
@@ -3688,7 +3680,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     p11 = phase_data_parallel(args.out_dir, tmp_dir, smi)
     p12 = phase_tools(args.out_dir, tmp_dir, smi, c2)
     steps = nms_step_launches()
-    every = [PN.NMS.launches - nms_before, selects[0]]
+    every = [NL.LAUNCHES["nms_3d"] - nms_before, selects[0]]
     log(f"[phase 12] NMS launches over phases 4-12 and the two steps against select calls "
         f"on the card: {every}")
     if every[0] != every[1]:
@@ -3697,7 +3689,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
 
     src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
     records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
-    fwd, dgrad, wgrad = c2["launches_train"][:3]
+    fwd, dgrad, wgrad = (c2["launches_train"][r] for r in ROLES[:3])
     paths = {"config1 infer.main (3 scenes)": want_launches(launches),
              f"config1 train.main ({TRAIN_STEPS} steps)": train["launches"],
              "config2 infer.main (1 batch)": c2["launches_infer"],
@@ -3714,7 +3706,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
             f"forward (10 convs, f32); pool_dropout: one pooled forward; train_step: one "
             f"config-2 train step ({n_train} convs, bf16, dense-3); per-conv records in "
             f"{records}", main_path, pool["forward"]),
-            launches_by_path={k: v[0] for k, v in paths.items()},
+            launches_by_path={k: v["forward"] for k, v in paths.items()},
             train_step={"launches": len(c2["forward_train_main_path"]),
                         **totals(c2["forward_train_main_path"])}),
         dict(kernel_entry(
@@ -3725,7 +3717,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
             f"inputs); launches: config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one "
             "config-1 train step (9 dgrads, f32); pool_dropout: one pooled train step",
             train["dgrad_main_path"], pool["dgrad"]),
-            launches_by_path={k: v[1] for k, v in paths.items()}),
+            launches_by_path={k: v["dgrad"] for k, v in paths.items()}),
         dict(kernel_entry(
             "sparse_conv_wgrad", src, "sparse_rcnn_tpu/ops/sparse_conv.py:542", wgrad,
             [r for r in bwd_recs if r["role"] == "wgrad"], c2["wgrad_main_path"],
@@ -3734,24 +3726,24 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
             f"launches: config-2 train.main, {C2_TRAIN_STEPS} steps; config1: one config-1 "
             "train step (10 wgrads, f32); pool_dropout: one pooled train step",
             train["wgrad_main_path"], pool["wgrad"]),
-            launches_by_path={k: v[2] for k, v in paths.items()}),
-        index_entry("roi_crop_grad", "sparse_rcnn_tpu/ops/roi.py:76", c2["launches_train"][3],
-                    index_recs, c2["roi_grad_main_path"], train["roi_grad_main_path"], paths, 3),
+            launches_by_path={k: v["wgrad"] for k, v in paths.items()}),
+        index_entry("roi_crop_grad", "sparse_rcnn_tpu/ops/roi.py:76", c2["launches_train"],
+                    index_recs, c2["roi_grad_main_path"], train["roi_grad_main_path"], paths),
         index_entry("mask_read_grad", "sparse_rcnn_tpu/models/heads.py:99",
-                    c2["launches_train"][4], index_recs, c2["mask_grad_main_path"],
-                    train["mask_grad_main_path"], paths, 4),
+                    c2["launches_train"], index_recs, c2["mask_grad_main_path"],
+                    train["mask_grad_main_path"], paths),
         index_entry("mask_read_map", "sparse_rcnn_tpu/models/heads.py:99",
-                    c2["launches_train"][5], index_recs, c2["mask_grad_main_path"],
-                    train["mask_grad_main_path"], paths, 5,
+                    c2["launches_train"], index_recs, c2["mask_grad_main_path"],
+                    train["mask_grad_main_path"], paths,
                     library="torch.sort(stable=True) of the keyed entries alone"),
         optim_entry("global_norm", "norm",
                     "sparse_rcnn_tpu/train/loop.py:81 (optax.clip_by_global_norm's norm), "
                     ":293 (the grad_norm metric's optax.global_norm)",
-                    c2["launches_train"][6], optim_recs, optim_shapes, paths, 6),
+                    c2["launches_train"], optim_recs, optim_shapes, paths),
         optim_entry("optim_apply", "apply",
                     "sparse_rcnn_tpu/train/loop.py:75-87 (make_optimizer: clip + adamw | sgd), "
                     ":286-289 (update, apply_updates), :298-312 (the EMA)",
-                    c2["launches_train"][7], optim_recs, optim_shapes, paths, 7),
+                    c2["launches_train"], optim_recs, optim_shapes, paths),
         nms_entry(nms_recs, nms_timed, nms_paths),
     ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -142,16 +142,13 @@ def _recomputing():
 
 
 class RematCounters:
-    """What :func:`remat` recomputed in this process, as plain integers like
-    ``ops/sparse_conv.py::KERNEL.launches``: ``blocks`` recomputed,
-    ``launches`` of the sparse-conv forward kernel made while recomputing
-    (the change of ``KERNEL.launches`` across each block's recompute),
+    """What :func:`remat` recomputed in this process, as plain integers:
     ``ns`` of host time spent recomputing (the ``remat`` spans' own
     durations, kept outside ``recording()`` too) and ``passes``, the
     backward passes that recomputed at least one block."""
 
     def __init__(self):
-        self.blocks = self.launches = self.ns = self.passes = 0
+        self.ns = self.passes = 0
         self.armed = False       # a forward ran blocks that its backward will recompute
 
 
@@ -185,15 +182,12 @@ def remat(block: nn.Module, *args):
         if REMAT.armed:
             REMAT.passes += 1
             REMAT.armed = False
-        k0 = sc.KERNEL.launches
         s = span("remat", waiter)
         try:
             with s, _recomputing(), DPC.shard_context(world):
                 count("remat_blocks")
                 return block(*a)
         finally:
-            REMAT.blocks += 1
-            REMAT.launches += sc.KERNEL.launches - k0
             REMAT.ns += s.ns
     return checkpoint(run, *args, use_reentrant=False)
 

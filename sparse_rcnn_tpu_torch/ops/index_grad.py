@@ -9,9 +9,8 @@
 
 Autograd's backward of both reads is an accumulating ``index_put_``. On a
 CUDA tensor the backward here runs the hand-written kernels of
-``csrc/index_grad.cu`` (built with ``nvcc`` at first use into
-``sparse_rcnn_tpu_torch/_build/`` beside the sparse-conv library, bound
-with ``ctypes``) over a map built in the forward: the entries sorted
+``csrc/index_grad.cu`` (the library ``native.libraries.INDEX_GRAD``) over
+a map built in the forward: the entries sorted
 stably by destination row, with each row's offsets. Each kernel adds a
 row's entries in the order CUDA's ``index_put_`` adds them, in f32, and
 rounds once. The crop's map is a device sort (:func:`roi_crop_map`). The
@@ -22,28 +21,19 @@ pass over the whole run, and is built per proposal by the
 CPU tensor the backward runs the plain versions
 :func:`roi_crop_grad_reference` and :func:`mask_read_grad_reference`:
 today's ``index_put_`` into zeros. There is no fallback: a CUDA tensor
-gets the kernels or an exception. ``ROI_CROP_GRAD``, ``MASK_READ_MAP``
-and ``MASK_READ_GRAD`` count the launches.
+gets the kernels or an exception. Their launches count as the roles
+``roi_crop_grad``, ``mask_read_map`` and ``mask_read_grad``.
 """
 
 from __future__ import annotations
 
-import ctypes
-from pathlib import Path
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from . import sparse_conv as sc
+from ..native import libraries as NL
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "index_grad.cu"
-_LIB = sc.Library(_SRC, "index_grad", {
-    "roi_crop_grad": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "mask_read_map": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5,
-    "mask_read_map_max_cells": [ctypes.c_int],
-    "mask_read_grad": [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p],
-})
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 TAIL = 32               # a mask map entry's lane in the tail of its run
 MAP_UNIT = 32768        # points of one proposal a block of mask_read_map takes, at most
 MAP_UNITS = 2048        # blocks the map's passes aim for, units of at least 4096 points
@@ -133,165 +123,100 @@ def mask_read_grad_reference(g: torch.Tensor, cell: torch.Tensor, cells: int) ->
     return out.index_put_((prow, cell.to(torch.int64)), g, accumulate=True)
 
 
-def _check(name: str, tensors: dict, ints: dict) -> None:
-    dev = next(iter({**tensors, **ints}.values())).device
-    if dev.type != "cuda" or any(t.device != dev for t in (*tensors.values(), *ints.values())):
-        raise ValueError(f"{name} kernel: {', '.join([*tensors, *ints])} must be on one "
-                         "CUDA device")
-    for n, t in ints.items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} kernel takes int32 {n}, got {t.dtype}")
-    for n, t in (*tensors.items(), *ints.items()):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} kernel: {n} must be contiguous")
-        if t.numel() >= 2 ** 31:
-            raise ValueError(f"{name} kernel: {n} has 2^31 entries or more")
-
-
-class RoICropGradKernel:
-    """``roi_crop_grad`` and a count of its launches (a plain integer that
-    goes up by one for each launch and nowhere else)."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def load(self):
-        return _LIB.get().roi_crop_grad
-
-    def __call__(self, g: torch.Tensor, w: torch.Tensor, rmap: RowMap, m: int) -> torch.Tensor:
-        """g [S, C], w [8, S] of one type (f32 or bf16), rmap over m rows →
-        d_feats [m, C]."""
-        perm, offsets = rmap
-        _check("roi_crop_grad", {"g": g, "w": w}, {"perm": perm, "offsets": offsets})
-        if g.dtype not in _DTYPE_CODE or w.dtype != g.dtype:
-            raise TypeError(f"roi_crop_grad kernel takes float32 or bfloat16 g and w of one "
-                            f"type, got {g.dtype} and {w.dtype}")
-        s, c = g.shape
-        if w.shape != (8, s) or perm.numel() != 8 * s or offsets.shape != (m + 1,):
-            raise ValueError(f"roi_crop_grad: g {tuple(g.shape)}, w {tuple(w.shape)}, perm "
-                             f"{tuple(perm.shape)}, offsets {tuple(offsets.shape)}, m {m}")
-        out = torch.empty((m, c), dtype=g.dtype, device=g.device)
-        if m == 0 or c == 0:
-            return out
-        if s == 0:
-            return out.zero_()
-        fn = self.load()
-        with torch.cuda.device(g.device):
-            stream = torch.cuda.current_stream(g.device).cuda_stream
-            err = fn(g.data_ptr(), w.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
-                     out.data_ptr(), m, c, s, _DTYPE_CODE[g.dtype], stream)
-        if err != 0:
-            raise RuntimeError(f"roi_crop_grad kernel launch failed: CUDA error {err}")
-        self.launches += 1
+def roi_crop_grad_kernel(g: torch.Tensor, w: torch.Tensor, rmap: RowMap,
+                         m: int) -> torch.Tensor:
+    """``roi_crop_grad``: g [S, C], w [8, S] of one type (f32 or bf16), rmap
+    over m rows → d_feats [m, C]."""
+    perm, offsets = rmap
+    NL.check_tensors("roi_crop_grad", {"g": g, "w": w}, {"perm": perm, "offsets": offsets})
+    dtype = NL.dtype_code("roi_crop_grad", ("g", "w"), g, w)
+    s, c = g.shape
+    if w.shape != (8, s) or perm.numel() != 8 * s or offsets.shape != (m + 1,):
+        raise ValueError(f"roi_crop_grad: g {tuple(g.shape)}, w {tuple(w.shape)}, perm "
+                         f"{tuple(perm.shape)}, offsets {tuple(offsets.shape)}, m {m}")
+    out = torch.empty((m, c), dtype=g.dtype, device=g.device)
+    if m == 0 or c == 0:
         return out
+    if s == 0:
+        return out.zero_()
+    NL.launch("roi_crop_grad", NL.load(NL.INDEX_GRAD).roi_crop_grad, g.device, g.data_ptr(),
+              w.data_ptr(), perm.data_ptr(), offsets.data_ptr(), out.data_ptr(), m, c, s,
+              dtype)
+    return out
 
 
-class MaskReadMapKernel:
+@functools.lru_cache(maxsize=None)
+def map_max_cells(device: torch.device) -> int:
+    """The most cells a mask grid may have on ``device``: the place pass of
+    ``mask_read_map`` holds three ints a cell in shared memory."""
+    got = NL.load(NL.INDEX_GRAD).mask_read_map_max_cells(device.index)
+    if got < 0:
+        raise RuntimeError(f"mask_read_map: CUDA error {-got} reading the card's "
+                           "shared memory size")
+    return got
+
+
+def mask_read_map_kernel(cell: torch.Tensor, cells: int, keep: Optional[torch.Tensor] = None,
+                         unit: Optional[int] = None) -> MaskMap:
     """``mask_read_map`` (four kernels: kept counts, cell counts, scan,
-    place; one call of the library) and a count of its calls."""
-
-    def __init__(self):
-        self.launches = 0
-        self.unit = None        # a fixed block size for tests and benchmarks; None: map_unit's
-        self._max_cells = {}
-
-    def load(self):
-        return _LIB.get().mask_read_map
-
-    def max_cells(self, device: torch.device) -> int:
-        """The most cells a mask grid may have on ``device``: the place pass
-        holds three ints a cell in shared memory."""
-        if device.index not in self._max_cells:
-            got = _LIB.get().mask_read_map_max_cells(device.index)
-            if got < 0:
-                raise RuntimeError(f"mask_read_map: CUDA error {-got} reading the card's "
-                                   "shared memory size")
-            self._max_cells[device.index] = got
-        return self._max_cells[device.index]
-
-    def __call__(self, cell: torch.Tensor, cells: int,
-                 keep: Optional[torch.Tensor] = None) -> MaskMap:
-        """cell int32 [P, N], keep bool [P, N] or None (every entry) →
-        (perm int32 [P N], offsets int32 [P cells + 1], lanes uint8 [P N]),
-        equal to :func:`mask_read_map_reference`'s up to ``offsets[-1]``;
-        ``perm`` and ``lanes`` past it are not written."""
-        if keep is None:
-            keep = torch.ones_like(cell, dtype=torch.bool)
-        _check("mask_read_map", {"keep": keep}, {"cell": cell})
-        if cell.dim() != 2 or keep.shape != cell.shape or keep.dtype != torch.bool:
-            raise ValueError(f"mask_read_map: cell {tuple(cell.shape)} must be [P, N] and keep "
-                             f"a bool tensor of its shape, got {(tuple(keep.shape), keep.dtype)}")
-        p, n = cell.shape
-        dev = cell.device
-        if cells > self.max_cells(dev):
-            raise ValueError(f"mask_read_map kernel: a mask grid of {cells} cells needs more "
-                             f"shared memory for its per-cell counters than a block may hold "
-                             f"on this card (at most {self.max_cells(dev)} cells); tiling over "
-                             "cells is not implemented")
-        if p * n >= 2 ** 31 or p * cells >= 2 ** 31 or n >= 2 ** 26:
-            raise ValueError(f"mask_read_map: P {p}, N {n}, cells {cells} too large")
-        unit = self.unit or map_unit(p, n)
-        if unit % 256 or not 256 <= unit <= MAP_UNIT:
-            raise ValueError(f"mask_read_map: unit {unit} must be a multiple of 256 up to "
-                             f"{MAP_UNIT}")
-        perm = torch.empty((p * n,), dtype=torch.int32, device=dev)
-        lanes = torch.empty((p * n,), dtype=torch.uint8, device=dev)
-        offsets = torch.empty((p * cells + 1,), dtype=torch.int32, device=dev)
-        if p * n * cells == 0:
-            return perm, offsets.zero_(), lanes
-        units = -(-n // unit)
-        ws = torch.empty((2 * p * units * cells + p * units + p,), dtype=torch.int32,
-                         device=dev)
-        fn = self.load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(cell.data_ptr(), keep.data_ptr(), p, n, cells, unit, perm.data_ptr(),
-                     lanes.data_ptr(), offsets.data_ptr(), ws.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"mask_read_map kernel launch failed: CUDA error {err}")
-        self.launches += 1
-        return perm, offsets, lanes
+    place; one launch of its role): cell int32 [P, N], keep bool [P, N] or
+    None (every entry) → (perm int32 [P N], offsets int32 [P cells + 1],
+    lanes uint8 [P N]), equal to :func:`mask_read_map_reference`'s up to
+    ``offsets[-1]``; ``perm`` and ``lanes`` past it are not written.
+    ``unit``: a fixed block size, for tests and benchmarks (None:
+    :func:`map_unit`'s)."""
+    if keep is None:
+        keep = torch.ones_like(cell, dtype=torch.bool)
+    NL.check_tensors("mask_read_map", {"keep": keep}, {"cell": cell})
+    if cell.dim() != 2 or keep.shape != cell.shape or keep.dtype != torch.bool:
+        raise ValueError(f"mask_read_map: cell {tuple(cell.shape)} must be [P, N] and keep "
+                         f"a bool tensor of its shape, got {(tuple(keep.shape), keep.dtype)}")
+    p, n = cell.shape
+    dev = cell.device
+    if cells > map_max_cells(dev):
+        raise ValueError(f"mask_read_map kernel: a mask grid of {cells} cells needs more "
+                         f"shared memory for its per-cell counters than a block may hold "
+                         f"on this card (at most {map_max_cells(dev)} cells); tiling over "
+                         "cells is not implemented")
+    if p * n >= 2 ** 31 or p * cells >= 2 ** 31 or n >= 2 ** 26:
+        raise ValueError(f"mask_read_map: P {p}, N {n}, cells {cells} too large")
+    unit = unit or map_unit(p, n)
+    if unit % 256 or not 256 <= unit <= MAP_UNIT:
+        raise ValueError(f"mask_read_map: unit {unit} must be a multiple of 256 up to "
+                         f"{MAP_UNIT}")
+    perm = torch.empty((p * n,), dtype=torch.int32, device=dev)
+    lanes = torch.empty((p * n,), dtype=torch.uint8, device=dev)
+    offsets = torch.empty((p * cells + 1,), dtype=torch.int32, device=dev)
+    if p * n * cells == 0:
+        return perm, offsets.zero_(), lanes
+    units = -(-n // unit)
+    ws = torch.empty((2 * p * units * cells + p * units + p,), dtype=torch.int32, device=dev)
+    NL.launch("mask_read_map", NL.load(NL.INDEX_GRAD).mask_read_map, dev, cell.data_ptr(),
+              keep.data_ptr(), p, n, cells, unit, perm.data_ptr(), lanes.data_ptr(),
+              offsets.data_ptr(), ws.data_ptr())
+    return perm, offsets, lanes
 
 
-class MaskReadGradKernel:
-    """``mask_read_grad`` and a count of its launches."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def load(self):
-        return _LIB.get().mask_read_grad
-
-    def __call__(self, g: torch.Tensor, rmap: MaskMap, rows: int) -> torch.Tensor:
-        """g bf16 [P, N] (or flat), the map of :func:`mask_read_map` over
-        ``rows`` rows → bf16 [rows]."""
-        perm, offsets, lanes = rmap
-        _check("mask_read_grad", {"g": g, "lanes": lanes}, {"perm": perm, "offsets": offsets})
-        if g.dtype != torch.bfloat16 or lanes.dtype != torch.uint8:
-            raise TypeError(f"mask_read_grad kernel takes bfloat16 g and uint8 lanes, got "
-                            f"{g.dtype} and {lanes.dtype}")
-        if (perm.numel() != g.numel() or lanes.numel() != g.numel()
-                or offsets.shape != (rows + 1,)):
-            raise ValueError(f"mask_read_grad: g {tuple(g.shape)}, perm {tuple(perm.shape)}, "
-                             f"lanes {tuple(lanes.shape)}, offsets {tuple(offsets.shape)}, "
-                             f"rows {rows}")
-        out = torch.empty((rows,), dtype=g.dtype, device=g.device)
-        if rows == 0:
-            return out
-        fn = self.load()
-        with torch.cuda.device(g.device):
-            stream = torch.cuda.current_stream(g.device).cuda_stream
-            err = fn(g.data_ptr(), perm.data_ptr(), offsets.data_ptr(), lanes.data_ptr(),
-                     out.data_ptr(), rows, stream)
-        if err != 0:
-            raise RuntimeError(f"mask_read_grad kernel launch failed: CUDA error {err}")
-        self.launches += 1
+def mask_read_grad_kernel(g: torch.Tensor, rmap: MaskMap, rows: int) -> torch.Tensor:
+    """``mask_read_grad``: g bf16 [P, N] (or flat), the map of
+    :func:`mask_read_map` over ``rows`` rows → bf16 [rows]."""
+    perm, offsets, lanes = rmap
+    NL.check_tensors("mask_read_grad", {"g": g, "lanes": lanes},
+                     {"perm": perm, "offsets": offsets})
+    if g.dtype != torch.bfloat16 or lanes.dtype != torch.uint8:
+        raise TypeError(f"mask_read_grad kernel takes bfloat16 g and uint8 lanes, got "
+                        f"{g.dtype} and {lanes.dtype}")
+    if (perm.numel() != g.numel() or lanes.numel() != g.numel()
+            or offsets.shape != (rows + 1,)):
+        raise ValueError(f"mask_read_grad: g {tuple(g.shape)}, perm {tuple(perm.shape)}, "
+                         f"lanes {tuple(lanes.shape)}, offsets {tuple(offsets.shape)}, "
+                         f"rows {rows}")
+    out = torch.empty((rows,), dtype=g.dtype, device=g.device)
+    if rows == 0:
         return out
-
-
-ROI_CROP_GRAD = RoICropGradKernel()
-MASK_READ_MAP = MaskReadMapKernel()
-MASK_READ_GRAD = MaskReadGradKernel()
+    NL.launch("mask_read_grad", NL.load(NL.INDEX_GRAD).mask_read_grad, g.device, g.data_ptr(),
+              perm.data_ptr(), offsets.data_ptr(), lanes.data_ptr(), out.data_ptr(), rows)
+    return out
 
 
 def mask_read_map(cell: torch.Tensor, cells: int,
@@ -299,7 +224,7 @@ def mask_read_map(cell: torch.Tensor, cells: int,
     """The mask read's map (:func:`mask_read_map_reference`): the kernel on
     a CUDA tensor, the plain version on any other."""
     if cell.device.type == "cuda":
-        return MASK_READ_MAP(cell, cells, keep)
+        return mask_read_map_kernel(cell, cells, keep)
     return mask_read_map_reference(cell, cells, keep)
 
 
@@ -307,14 +232,14 @@ def roi_crop_grad(g, w, idx, rmap: Optional[RowMap], m: int) -> torch.Tensor:
     """d_feats [m, C]: the kernel on a CUDA tensor, the plain version on a CPU one."""
     if g.device.type == "cpu":
         return roi_crop_grad_reference(g, w, idx, m)
-    return ROI_CROP_GRAD(g, w, rmap, m)
+    return roi_crop_grad_kernel(g, w, rmap, m)
 
 
 def mask_read_grad(g, cell, rmap: Optional[MaskMap], cells: int) -> torch.Tensor:
     """d_mask [P, cells]: the kernel on a CUDA tensor, the plain version on a CPU one."""
     if g.device.type == "cpu":
         return mask_read_grad_reference(g, cell, cells)
-    return MASK_READ_GRAD(g, rmap, g.shape[0] * cells).reshape(g.shape[0], cells)
+    return mask_read_grad_kernel(g, rmap, g.shape[0] * cells).reshape(g.shape[0], cells)
 
 
 class _CornerGather(torch.autograd.Function):

@@ -11,18 +11,17 @@ optax's ``clip_by_global_norm`` → ``adamw`` | ``sgd`` and the EMA.
     EMA:   e ← e·d + p·(1−d), on the updated p
 
 On CUDA tensors :func:`global_norm` and :func:`optim_apply` run the
-hand-written kernels of ``csrc/optim.cu`` (built with ``nvcc -fmad=false``
-at first use into ``sparse_rcnn_tpu_torch/_build/`` beside the other
-libraries, bound with ``ctypes``): ``global_sumsq_partial`` and
-``global_sumsq_finish`` for the norm, which stays on the card, and
-``optim_apply``, which reads it there, for the rest. The lists go to each
-launch by value, so no launch copies or waits. On CPU tensors they run the
-plain versions :func:`global_norm_reference` and
+hand-written kernels of ``csrc/optim.cu`` (the library
+``native.libraries.OPTIM``, built with ``-fmad=false``):
+``global_sumsq_partial`` and ``global_sumsq_finish`` for the norm, which
+stays on the card, and ``optim_apply``, which reads it there, for the rest.
+The lists go to each launch by value, so no launch copies or waits. On CPU
+tensors they run the plain versions :func:`global_norm_reference` and
 :func:`optim_apply_reference`, which on the card give the kernels' results
 bit for bit (on the CPU the bias corrections divide, one rounding where the
 card's foreach multiplies by a reciprocal). There is no fallback: a CUDA
-tensor gets the kernels or an exception. ``GLOBAL_NORM`` and
-``OPTIM_APPLY`` count the launches.
+tensor gets the kernels or an exception. Their launches count as the
+roles ``global_norm`` and ``optim_apply``.
 
 The norm's order is a function of the shapes alone (:func:`chunk_plan`):
 the gradients are cut, tensor by tensor in their order, into chunks of at
@@ -39,14 +38,13 @@ import ctypes
 import dataclasses
 import functools
 import math
-from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import sparse_conv as sc
+from ..native import libraries as NL
 
 THREADS = 256
 CHUNK = 16384
@@ -55,18 +53,6 @@ MAX_TENSORS = 192            # tensors a launch takes (its parameter struct)
 B1, B2, EPS = 0.9, 0.999, 1e-8
 MOMENTUM = 0.9
 KINDS = {"adamw": 0, "sgd": 1, "ema": 2}
-
-_SRC = Path(__file__).resolve().parent / "csrc" / "optim.cu"
-_PTRS = ctypes.POINTER(ctypes.c_void_p)
-_INTS = ctypes.POINTER(ctypes.c_int)
-_LIB = sc.Library(_SRC, "optim", {
-    "optim_layout": [_INTS],
-    "global_sumsq_partial": [_PTRS, _INTS, _INTS, ctypes.c_int, ctypes.c_void_p,
-                             ctypes.c_void_p],
-    "global_sumsq_finish": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
-    "optim_apply": [_PTRS] * 5 + [_INTS, _INTS, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
-}, flags=("-fmad=false",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,102 +228,68 @@ def _layouts(ts, a: int, b: int):
     return (ctypes.c_int * (2 * (b - a)))(*[x for t in ts[a:b] for x in grad_layout(t)])
 
 
-def _load():
-    lib = _LIB.get()
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The library, once its layout is checked against this module's."""
+    lib = NL.load(NL.OPTIM)
     got = (ctypes.c_int * 3)()
     lib.optim_layout(got)
     if tuple(got) != (THREADS, CHUNK, MAX_TENSORS):
-        raise RuntimeError(f"{_SRC.name} has layout {tuple(got)}, ops/optim.py "
+        raise RuntimeError(f"{NL.OPTIM.source.name} has layout {tuple(got)}, ops/optim.py "
                            f"{(THREADS, CHUNK, MAX_TENSORS)}")
     return lib
 
 
-class GlobalNormKernel:
+def global_norm_kernel(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """``global_sumsq_partial`` (one launch per :func:`chunk_plan` launch)
-    then ``global_sumsq_finish``, and a count of their launches."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def load(self):
-        return _load()
-
-    def __call__(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-        """‖tensors‖ as a 0-d float32 tensor on their device; no host sync."""
-        if not len(tensors):
-            raise ValueError("global_norm kernel: an empty list")
-        dev = tensors[0].device
-        numels = tuple(t.numel() for t in tensors)
-        _check("global_norm", {"grads": tensors}, numels, dev)
-        n_chunks, launches = _plan(numels)
-        partials = torch.empty(n_chunks, dtype=torch.float32, device=dev)
-        norm = torch.empty((), dtype=torch.float32, device=dev)
-        lib = self.load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            for a, b, c0, _ in launches:
-                err = lib.global_sumsq_partial(_ptrs(tensors, a, b),
-                                               (ctypes.c_int * (b - a))(*numels[a:b]),
-                                               _layouts(tensors, a, b), b - a,
-                                               partials.data_ptr() + 4 * c0, stream)
-                if err != 0:
-                    raise RuntimeError(f"global_sumsq_partial launch failed: CUDA error {err}")
-                self.launches += 1
-            err = lib.global_sumsq_finish(partials.data_ptr(), n_chunks, norm.data_ptr(),
-                                          stream)
-        if err != 0:
-            raise RuntimeError(f"global_sumsq_finish launch failed: CUDA error {err}")
-        self.launches += 1
-        return norm
+    then ``global_sumsq_finish``: ‖tensors‖ as a 0-d float32 tensor on their
+    device; no host sync."""
+    if not len(tensors):
+        raise ValueError("global_norm kernel: an empty list")
+    dev = tensors[0].device
+    numels = tuple(t.numel() for t in tensors)
+    _check("global_norm", {"grads": tensors}, numels, dev)
+    n_chunks, launches = _plan(numels)
+    partials = torch.empty(n_chunks, dtype=torch.float32, device=dev)
+    norm = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _lib()
+    for a, b, c0, _ in launches:
+        NL.launch("global_norm", lib.global_sumsq_partial, dev, _ptrs(tensors, a, b),
+                  (ctypes.c_int * (b - a))(*numels[a:b]), _layouts(tensors, a, b), b - a,
+                  partials.data_ptr() + 4 * c0)
+    NL.launch("global_norm", lib.global_sumsq_finish, dev, partials.data_ptr(), n_chunks,
+              norm.data_ptr())
+    return norm
 
 
-class OptimApplyKernel:
-    """``optim_apply`` (one launch per :func:`chunk_plan` launch) and a count
-    of its launches."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def load(self):
-        return _load()
-
-    def __call__(self, norm, grads, params, mu, nu, ema, step: Step) -> None:
-        """As :func:`optim_apply_reference`, in place, on the card; ``norm``
-        stays there."""
-        kind = KINDS[step.kind]
-        lists = {"params": params}
-        if step.kind != "ema":
-            lists.update(grads=grads, mu=mu)
-        if step.kind == "adamw":
-            lists["nu"] = nu
-        if ema is not None:
-            lists["ema"] = ema
-        elif step.kind == "ema":
-            raise ValueError("optim_apply kernel: kind 'ema' without EMA tensors")
-        dev = params[0].device
-        numels = tuple(t.numel() for t in params)
-        _check("optim_apply", lists, numels, dev)
-        if step.kind != "ema" and (norm.device != dev or norm.dtype != torch.float32
-                                   or norm.numel() != 1):
-            raise ValueError(f"optim_apply kernel: norm must be one float32 on {dev}")
-        scal = (ctypes.c_float * 12)(*kernel_scalars(step))
-        lib = self.load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            for a, b, _, _ in _plan(numels)[1]:
-                err = lib.optim_apply(
-                    *(_ptrs(lists.get(k), a, b) for k in ("grads", "params", "mu", "nu", "ema")),
-                    (ctypes.c_int * (b - a))(*numels[a:b]),
-                    _layouts(lists.get("grads", params), a, b), b - a, scal, kind,
-                    int(ema is not None), norm.data_ptr() if step.kind != "ema" else None,
-                    stream)
-                if err != 0:
-                    raise RuntimeError(f"optim_apply launch failed: CUDA error {err}")
-                self.launches += 1
-
-
-GLOBAL_NORM = GlobalNormKernel()
-OPTIM_APPLY = OptimApplyKernel()
+def optim_apply_kernel(norm, grads, params, mu, nu, ema, step: Step) -> None:
+    """``optim_apply`` (one launch per :func:`chunk_plan` launch): as
+    :func:`optim_apply_reference`, in place, on the card; ``norm`` stays
+    there."""
+    kind = KINDS[step.kind]
+    lists = {"params": params}
+    if step.kind != "ema":
+        lists.update(grads=grads, mu=mu)
+    if step.kind == "adamw":
+        lists["nu"] = nu
+    if ema is not None:
+        lists["ema"] = ema
+    elif step.kind == "ema":
+        raise ValueError("optim_apply kernel: kind 'ema' without EMA tensors")
+    dev = params[0].device
+    numels = tuple(t.numel() for t in params)
+    _check("optim_apply", lists, numels, dev)
+    if step.kind != "ema" and (norm.device != dev or norm.dtype != torch.float32
+                               or norm.numel() != 1):
+        raise ValueError(f"optim_apply kernel: norm must be one float32 on {dev}")
+    scal = (ctypes.c_float * 12)(*kernel_scalars(step))
+    lib = _lib()
+    for a, b, _, _ in _plan(numels)[1]:
+        NL.launch("optim_apply", lib.optim_apply, dev,
+                  *(_ptrs(lists.get(k), a, b) for k in ("grads", "params", "mu", "nu", "ema")),
+                  (ctypes.c_int * (b - a))(*numels[a:b]),
+                  _layouts(lists.get("grads", params), a, b), b - a, scal, kind,
+                  int(ema is not None), norm.data_ptr() if step.kind != "ema" else None)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -345,7 +297,7 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     the plain version on CPU ones."""
     if not len(tensors) or tensors[0].device.type == "cpu":
         return global_norm_reference(tensors)
-    return GLOBAL_NORM(tensors)
+    return global_norm_kernel(tensors)
 
 
 def optim_apply(norm, grads, params, mu, nu, ema, step: Step) -> None:
@@ -353,4 +305,4 @@ def optim_apply(norm, grads, params, mu, nu, ema, step: Step) -> None:
     kernel on CUDA tensors, the plain version on CPU ones."""
     if params[0].device.type == "cpu":
         return optim_apply_reference(norm, grads, params, mu, nu, ema, step)
-    OPTIM_APPLY(norm, grads, params, mu, nu, ema, step)
+    optim_apply_kernel(norm, grads, params, mu, nu, ema, step)

@@ -15,34 +15,23 @@ transpose of ``idx[k]`` (``t_idx[k, j] = i`` iff ``idx[k, i] = j``):
     d_W[k]     = Σ_j feats[j]ᵀ ⊗ g[t_idx[k, j]]   (wgrad)
 
 On a CUDA tensor these run on the hand-written kernels of
-``csrc/sparse_conv.cu`` (built with ``nvcc`` at first use into
-``sparse_rcnn_tpu_torch/_build/`` and bound with ``ctypes``): the fused
+``csrc/sparse_conv.cu`` (the library ``native.libraries.SPARSE_CONV``): the fused
 gather-GEMM, the port of the TPU kernel
 ``sparse_rcnn_tpu/ops/pallas_conv.py::tap_accumulate_matmul``, for the
 forward and (on g, t_idx, Wᵀ) for the dgrad; a two-pass deterministic
 kernel for the wgrad. On a CPU tensor they run the plain versions
 :func:`sparse_conv_reference` and :func:`sparse_conv_wgrad_reference`.
 There is no fallback: a CUDA tensor gets the kernels or an exception.
-``KERNEL``, ``DGRAD`` and ``WGRAD`` count the launches of each role.
+Their launches count as the roles ``forward``, ``dgrad`` and ``wgrad``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
 from . import rulebook as rb
+from ..native import libraries as NL
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "sparse_conv.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # wgrad row chunks: at least 256 rows each, at most 256 chunks per scene
 # (the partials buffer is K · chunks · Cin · Cout f32), 32-row aligned
 _WGRAD_MIN_ROWS = 256
@@ -92,101 +81,29 @@ def sparse_conv_wgrad_reference(feats: torch.Tensor, t_idx: torch.Tensor,
     return out
 
 
-def build_kernel(source: Path = _SRC, name: str = "sparse_conv", flags=()) -> tuple:
-    """Compile ``source`` (by default ``csrc/sparse_conv.cu``) for sm_90a,
-    with nvcc's extra ``flags``, into ``_build/lib<name>_<hash of the text
-    and flags>.so`` unless a library built from the same text and flags
-    exists. Returns (path of the .so, nvcc's messages).
-    Processes that build at once (the ranks of a data-parallel run) take
-    turns on a file lock: the first compiles, the others then find its
-    library; a failed build raises in each of them."""
-    src = Path(source).read_bytes() + " ".join(flags).encode()
-    so = _BUILD_DIR / f"lib{name}_{hashlib.sha1(src).hexdigest()[:12]}.so"
-    if so.exists():
-        return so, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(so.with_name(so.name + ".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if so.exists():
-            return so, ""
-        return _nvcc(source, so, flags)
-
-
-def _nvcc(source: Path, so: Path, flags=()) -> tuple:
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags,
-           "-o", str(tmp), str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)   # atomic: a concurrent builder sees all or nothing
-    return so, res.stdout + res.stderr
-
-
-class Library:
-    """A CUDA library built by :func:`build_kernel` from ``source`` (with
-    nvcc's extra ``flags``) at first use and loaded once, its entry points
-    typed from ``argtypes`` (name → ctypes argument types; each returns a
-    CUDA error code)."""
-
-    def __init__(self, source: Path, name: str, argtypes: dict, flags=()):
-        self.source, self.name, self.argtypes, self.flags = source, name, argtypes, tuple(flags)
-        self._lib = None
-
-    def get(self):
-        if self._lib is None:
-            so, _ = build_kernel(self.source, self.name, self.flags)
-            lib = ctypes.CDLL(str(so))
-            for fn, types in self.argtypes.items():
-                getattr(lib, fn).argtypes = types
-                getattr(lib, fn).restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
-
-
-_LIB = Library(_SRC, "sparse_conv", {
-    "sparse_conv_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    "sparse_conv_wgrad": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
-})
-
-
-class SparseConvKernel:
-    """The fused gather-GEMM kernel and a count of its launches.
-
-    ``launches`` is a plain integer that goes up by one for each launch of
-    the kernel and nowhere else, so that a run can show that its convs went
-    through the kernel. The forward and the dgrad each have an instance of
-    their own (``KERNEL`` and ``DGRAD``), so their launches count apart.
-    """
-
-    def __init__(self):
-        self.launches = 0
-
-    def load(self):
-        return _LIB.get().sparse_conv_forward
-
-    def __call__(self, feats: torch.Tensor, idx: torch.Tensor,
-                 weights: torch.Tensor) -> torch.Tensor:
-        _check_cuda_args(feats, idx, weights)
-        b, m_in, cin = feats.shape
-        k, _, cout = weights.shape
-        m_out = idx.shape[-1]
-        out = torch.empty((b, m_out, cout), dtype=feats.dtype, device=feats.device)
-        if b == 0 or m_out == 0 or cout == 0:
-            return out
-        fn = self.load()
-        with torch.cuda.device(feats.device):
-            stream = torch.cuda.current_stream(feats.device).cuda_stream
-            err = fn(feats.data_ptr(), idx.data_ptr(), weights.data_ptr(),
-                     out.data_ptr(), b, m_in, m_out, k, cin, cout,
-                     _DTYPE_CODE[feats.dtype], stream)
-        if err != 0:
-            raise RuntimeError(f"sparse_conv kernel launch failed: CUDA error {err}")
-        self.launches += 1
+def conv_kernel(feats: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
+                role: str = "forward") -> torch.Tensor:
+    """The fused gather-GEMM kernel, its launch counted as ``role``: the
+    forward, or the dgrad (the same kernel on g, t_idx and Wᵀ)."""
+    if feats.dim() != 3 or idx.dim() != 3 or weights.dim() != 3:
+        raise ValueError("sparse_conv wants feats [B,M_in,Cin], idx [B,K,M_out], "
+                         f"W [K,Cin,Cout]; got {tuple(feats.shape)}, "
+                         f"{tuple(idx.shape)}, {tuple(weights.shape)}")
+    b, m_in, cin = feats.shape
+    k, wcin, cout = weights.shape
+    m_out = idx.shape[-1]
+    if idx.shape[0] != b or idx.shape[1] != k or wcin != cin:
+        raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, idx "
+                         f"{tuple(idx.shape)}, W {tuple(weights.shape)}")
+    NL.check_tensors(role, {"feats": feats, "W": weights}, {"idx": idx})
+    dtype = NL.dtype_code(role, ("feats", "W"), feats, weights)
+    out = torch.empty((b, m_out, cout), dtype=feats.dtype, device=feats.device)
+    if b == 0 or m_out == 0 or cout == 0:
         return out
+    NL.launch(role, NL.load(NL.SPARSE_CONV).sparse_conv_forward, feats.device,
+              feats.data_ptr(), idx.data_ptr(), weights.data_ptr(), out.data_ptr(),
+              b, m_in, m_out, k, cin, cout, dtype)
+    return out
 
 
 def wgrad_chunks(m_in: int) -> tuple:
@@ -198,74 +115,10 @@ def wgrad_chunks(m_in: int) -> tuple:
     return rows, -(-m_in // rows)
 
 
-class SparseConvWgradKernel:
-    """The two-pass deterministic wgrad kernel and a count of its launches
-    (one per call: both passes are one launch of the wrapper)."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def load(self):
-        return _LIB.get().sparse_conv_wgrad
-
-    def __call__(self, feats: torch.Tensor, t_idx: torch.Tensor,
-                 g: torch.Tensor) -> torch.Tensor:
-        """feats [B, M_in, Cin], t_idx int32 [B, K, M_in], g [B, M_out, Cout]
-        → d_W f32 [K, Cin, Cout]."""
-        _check_wgrad_args(feats, t_idx, g)
-        b, m_in, cin = feats.shape
-        m_out, cout = g.shape[1], g.shape[2]
-        k = t_idx.shape[1]
-        if b == 0 or m_in == 0 or m_out == 0:
-            return torch.zeros((k, cin, cout), dtype=torch.float32, device=feats.device)
-        rows, n_chunks = wgrad_chunks(m_in)
-        partials = torch.empty((k, b * n_chunks, cin, cout), dtype=torch.float32,
-                               device=feats.device)
-        out = torch.empty((k, cin, cout), dtype=torch.float32, device=feats.device)
-        fn = self.load()
-        with torch.cuda.device(feats.device):
-            stream = torch.cuda.current_stream(feats.device).cuda_stream
-            err = fn(feats.data_ptr(), t_idx.data_ptr(), g.data_ptr(),
-                     partials.data_ptr(), out.data_ptr(), b, m_in, m_out, k, cin,
-                     cout, rows, n_chunks, _DTYPE_CODE[feats.dtype], stream)
-        if err != 0:
-            raise RuntimeError(f"sparse_conv wgrad kernel launch failed: CUDA error {err}")
-        self.launches += 1
-        return out
-
-
-def _check_common(names, tensors, int_name, ints):
-    if not all(t.device == tensors[0].device for t in tensors + (ints,)) \
-            or tensors[0].device.type != "cuda":
-        raise ValueError(f"sparse_conv kernel: {', '.join(names + (int_name,))} "
-                         "must be on one CUDA device")
-    if tensors[0].dtype not in _DTYPE_CODE or tensors[1].dtype != tensors[0].dtype:
-        raise TypeError(f"sparse_conv kernel takes float32 or bfloat16 {names[0]} and "
-                        f"{names[1]} of one type, got {tensors[0].dtype} and "
-                        f"{tensors[1].dtype}")
-    if ints.dtype != torch.int32:
-        raise TypeError(f"sparse_conv kernel takes int32 {int_name}, got {ints.dtype}")
-    for name, t in zip(names + (int_name,), tensors + (ints,)):
-        if not t.is_contiguous():
-            raise ValueError(f"sparse_conv kernel: {name} must be contiguous")
-    if max(sum((tuple(t.shape) for t in tensors + (ints,)), ())) >= 2 ** 31:
-        raise ValueError("sparse_conv kernel: a dimension exceeds int32")
-
-
-def _check_cuda_args(feats, idx, weights):
-    if feats.dim() != 3 or idx.dim() != 3 or weights.dim() != 3:
-        raise ValueError("sparse_conv wants feats [B,M_in,Cin], idx [B,K,M_out], "
-                         f"W [K,Cin,Cout]; got {tuple(feats.shape)}, "
-                         f"{tuple(idx.shape)}, {tuple(weights.shape)}")
-    b, _, cin = feats.shape
-    k, wcin, _ = weights.shape
-    if idx.shape[0] != b or idx.shape[1] != k or wcin != cin:
-        raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, idx "
-                         f"{tuple(idx.shape)}, W {tuple(weights.shape)}")
-    _check_common(("feats", "W"), (feats, weights), "idx", idx)
-
-
-def _check_wgrad_args(feats, t_idx, g):
+def wgrad_kernel(feats: torch.Tensor, t_idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The two-pass deterministic wgrad kernel (one launch of role
+    ``wgrad``): feats [B, M_in, Cin], t_idx int32 [B, K, M_in], g
+    [B, M_out, Cout] → d_W f32 [K, Cin, Cout]."""
     if feats.dim() != 3 or t_idx.dim() != 3 or g.dim() != 3:
         raise ValueError("sparse_conv wgrad wants feats [B,M_in,Cin], t_idx "
                          f"[B,K,M_in], g [B,M_out,Cout]; got {tuple(feats.shape)}, "
@@ -274,19 +127,28 @@ def _check_wgrad_args(feats, t_idx, g):
             or t_idx.shape[2] != feats.shape[1] or t_idx.shape[1] > 65535):
         raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, t_idx "
                          f"{tuple(t_idx.shape)}, g {tuple(g.shape)}")
-    _check_common(("feats", "g"), (feats, g), "t_idx", t_idx)
-
-
-KERNEL = SparseConvKernel()          # forward launches
-DGRAD = SparseConvKernel()           # dgrad launches (the same kernel on g, t_idx, Wᵀ)
-WGRAD = SparseConvWgradKernel()      # wgrad launches
+    NL.check_tensors("wgrad", {"feats": feats, "g": g}, {"t_idx": t_idx})
+    dtype = NL.dtype_code("wgrad", ("feats", "g"), feats, g)
+    b, m_in, cin = feats.shape
+    m_out, cout = g.shape[1], g.shape[2]
+    k = t_idx.shape[1]
+    if b == 0 or m_in == 0 or m_out == 0:
+        return torch.zeros((k, cin, cout), dtype=torch.float32, device=feats.device)
+    rows, n_chunks = wgrad_chunks(m_in)
+    partials = torch.empty((k, b * n_chunks, cin, cout), dtype=torch.float32,
+                           device=feats.device)
+    out = torch.empty((k, cin, cout), dtype=torch.float32, device=feats.device)
+    NL.launch("wgrad", NL.load(NL.SPARSE_CONV).sparse_conv_wgrad, feats.device,
+              feats.data_ptr(), t_idx.data_ptr(), g.data_ptr(), partials.data_ptr(),
+              out.data_ptr(), b, m_in, m_out, k, cin, cout, rows, n_chunks, dtype)
+    return out
 
 
 def conv_forward(feats, idx, weights):
     """The forward: the kernel on a CUDA tensor, the plain version on a CPU one."""
     if feats.device.type == "cpu":
         return sparse_conv_reference(feats, idx, weights)
-    return KERNEL(feats, idx, weights)
+    return conv_kernel(feats, idx, weights)
 
 
 def conv_dgrad(g, t_idx, weights):
@@ -295,7 +157,7 @@ def conv_dgrad(g, t_idx, weights):
     w_t = weights.transpose(1, 2).to(g.dtype).contiguous()      # [K, Cout, Cin]
     if g.device.type == "cpu":
         return sparse_conv_reference(g, t_idx, w_t)
-    return DGRAD(g, t_idx, w_t)
+    return conv_kernel(g, t_idx, w_t, "dgrad")
 
 
 def conv_wgrad(feats, t_idx, g):
@@ -303,7 +165,7 @@ def conv_wgrad(feats, t_idx, g):
     version on a CPU one."""
     if feats.device.type == "cpu":
         return sparse_conv_wgrad_reference(feats, t_idx, g)
-    return WGRAD(feats, t_idx, g)
+    return wgrad_kernel(feats, t_idx, g)
 
 
 def transpose_rulebooks(idx: torch.Tensor, m_in: int) -> torch.Tensor:

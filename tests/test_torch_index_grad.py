@@ -44,6 +44,7 @@ from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.models import detector as PDet
 from sparse_rcnn_tpu_torch.models import heads as PHd
 from sparse_rcnn_tpu_torch.models.targets import roi_targets
+from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
 from sparse_rcnn_tpu_torch.ops import roi as PRoi
 from sparse_rcnn_tpu_torch.train import loop as TL
@@ -433,17 +434,17 @@ def test_no_map_without_a_gradient_or_on_the_cpu(rng, monkeypatch):
 def test_kernel_wrappers_refuse_cpu_tensors():
     g = torch.zeros(10, 4)
     rmap = IG.roi_crop_map(torch.full((8, 10), -1, dtype=torch.int32), 5)
-    kernels = (IG.ROI_CROP_GRAD, IG.MASK_READ_MAP, IG.MASK_READ_GRAD)
-    before = [k.launches for k in kernels]
+    before = dict(NL.LAUNCHES)
     with pytest.raises(ValueError):
-        IG.ROI_CROP_GRAD(g, torch.zeros(8, 10), rmap, 5)
+        IG.roi_crop_grad_kernel(g, torch.zeros(8, 10), rmap, 5)
     cell = torch.zeros(2, 5, dtype=torch.int32)
     for keep in (torch.ones(2, 5, dtype=torch.bool), None):
         with pytest.raises(ValueError):
-            IG.MASK_READ_MAP(cell, 3, keep)
+            IG.mask_read_map_kernel(cell, 3, keep)
     with pytest.raises(ValueError):
-        IG.MASK_READ_GRAD(torch.zeros(2, 5, dtype=torch.bfloat16), IG.mask_read_map(cell, 3), 6)
-    assert [k.launches for k in kernels] == before
+        IG.mask_read_grad_kernel(torch.zeros(2, 5, dtype=torch.bfloat16),
+                                 IG.mask_read_map(cell, 3), 6)
+    assert dict(NL.LAUNCHES) == before
 
 
 def test_mask_read_without_keep_as_before(rng, monkeypatch):

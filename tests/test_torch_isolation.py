@@ -56,9 +56,6 @@ import tests.test_torch_kernel_cuda
 import benchmarks.profile_torch_slice
 import benchmarks.eval_step_syncs
 import benchmarks.eval_scoring_split
-import benchmarks.compare_gather_gemm
-import benchmarks.probe_gather_gemm_stages
-import benchmarks.probe_wgrad_stages
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "sparse_rcnn_tpu"))

@@ -40,6 +40,7 @@ from benchmarks import optim_cases as OC
 from sparse_rcnn_tpu_torch.config import RPNConfig, load_config
 from sparse_rcnn_tpu_torch.data.pipeline import Loader
 from sparse_rcnn_tpu_torch.models import rpn as PRpn
+from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
 from sparse_rcnn_tpu_torch.ops import nms as PN
 from sparse_rcnn_tpu_torch.ops import optim as OPT
@@ -170,10 +171,10 @@ def test_cuda_kernel_matches_reference(cuda_device, case):
     f = torch.from_numpy(feats).to(cuda_device, TORCH_DT[dt])
     ix = torch.from_numpy(idx).to(cuda_device)
     tw = torch.from_numpy(w).to(cuda_device, TORCH_DT[dt])
-    before = SC.KERNEL.launches
+    before = NL.LAUNCHES["forward"]
     got = SC.sparse_conv(f, ix, tw)
     torch.cuda.synchronize()
-    assert SC.KERNEL.launches == before + 1
+    assert NL.LAUNCHES["forward"] == before + 1
     assert got.dtype == TORCH_DT[dt] and got.shape == (2, m_out, cout)
     want = SC.sparse_conv_reference(f, ix, tw)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
@@ -185,10 +186,10 @@ def test_cuda_kernel_refuses_mixed_dtypes(cuda_device):
     f = torch.from_numpy(feats).to(cuda_device)
     ix = torch.from_numpy(idx).to(cuda_device)
     tw = torch.from_numpy(w).to(cuda_device, torch.bfloat16)
-    before = SC.KERNEL.launches
+    before = NL.LAUNCHES["forward"]
     with pytest.raises(TypeError):
         SC.sparse_conv(f, ix, tw)
-    assert SC.KERNEL.launches == before
+    assert NL.LAUNCHES["forward"] == before
 
 
 # the backward kernels: wgrad sums up to B * M_in products per entry in
@@ -212,12 +213,12 @@ def test_cuda_backward_kernels_match_reference(cuda_device, case):
     ti = torch.from_numpy(t_idx).to(cuda_device)
     tw = torch.from_numpy(w).to(cuda_device, TORCH_DT[dt])
     g = g.to(cuda_device, TORCH_DT[dt])
-    before = (SC.DGRAD.launches, SC.WGRAD.launches)
+    before = (NL.LAUNCHES["dgrad"], NL.LAUNCHES["wgrad"])
     d_f = SC.conv_dgrad(g, ti, tw)
     d_w = SC.conv_wgrad(f, ti, g)
     d_w2 = SC.conv_wgrad(f, ti, g)
     torch.cuda.synchronize()
-    assert (SC.DGRAD.launches, SC.WGRAD.launches) == (before[0] + 1, before[1] + 2)
+    assert (NL.LAUNCHES["dgrad"], NL.LAUNCHES["wgrad"]) == (before[0] + 1, before[1] + 2)
     assert d_f.dtype == TORCH_DT[dt] and d_f.shape == (2, m_in, cin)
     assert d_w.dtype == torch.float32 and d_w.shape == (k, cin, cout)
     assert torch.equal(d_w, d_w2)                 # no atomics: bit-identical
@@ -235,10 +236,10 @@ def test_cuda_sparse_conv_has_grad_fn(cuda_device):
     ix = torch.from_numpy(idx).to(cuda_device)
     out = SC.sparse_conv_t(f, ix, torch.from_numpy(t_idx).to(cuda_device), tw)
     assert out.grad_fn is not None
-    before = (SC.DGRAD.launches, SC.WGRAD.launches)
+    before = (NL.LAUNCHES["dgrad"], NL.LAUNCHES["wgrad"])
     out.square().sum().backward()
     torch.cuda.synchronize()
-    assert (SC.DGRAD.launches, SC.WGRAD.launches) == (before[0] + 1, before[1] + 1)
+    assert (NL.LAUNCHES["dgrad"], NL.LAUNCHES["wgrad"]) == (before[0] + 1, before[1] + 1)
     fc = f.detach().cpu().requires_grad_(True)
     wc = tw.detach().cpu().requires_grad_(True)
     SC.sparse_conv_t(fc, ix.cpu(), torch.from_numpy(t_idx), wc).square().sum().backward()
@@ -284,11 +285,11 @@ def test_cuda_wgrad_kernel_matches_reference(cuda_device, case):
     f = torch.from_numpy(feats).to(cuda_device, TORCH_DT[dt])
     ti = torch.from_numpy(t_idx).to(cuda_device)
     g = torch.from_numpy(g).to(cuda_device, TORCH_DT[dt])
-    before = SC.WGRAD.launches
+    before = NL.LAUNCHES["wgrad"]
     d_w = SC.conv_wgrad(f, ti, g)
     d_w2 = SC.conv_wgrad(f, ti, g)
     torch.cuda.synchronize()
-    assert SC.WGRAD.launches == before + 2
+    assert NL.LAUNCHES["wgrad"] == before + 2
     assert d_w.dtype == torch.float32 and d_w.shape == (k, cin, cout)
     assert torch.equal(d_w, d_w2)                 # no atomics: bit-identical
     _wgrad_close(d_w, SC.sparse_conv_wgrad_reference(f, ti, g))
@@ -333,12 +334,12 @@ def test_cuda_roi_crop_grad_bit_equal_to_index_put(cuda_device, case):
     m = case[0]
     g, w, idx = roi_grad_inputs(cuda_device, *case)
     rmap = IG.roi_crop_map(idx, m)
-    before = IG.ROI_CROP_GRAD.launches
+    before = NL.LAUNCHES["roi_crop_grad"]
     got = IG.roi_crop_grad(g, w, idx, rmap, m)
     again = IG.roi_crop_grad(g, w, idx, rmap, m)
     want = IG.roi_crop_grad_reference(g, w, idx, m)
     torch.cuda.synchronize()
-    assert IG.ROI_CROP_GRAD.launches == before + 2
+    assert NL.LAUNCHES["roi_crop_grad"] == before + 2
     assert got.dtype == g.dtype and got.shape == (m, g.shape[1])
     assert torch.equal(got, again)
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
@@ -372,12 +373,12 @@ def test_cuda_mask_read_grad_bit_equal_to_index_put(cuda_device, case):
     g = torch.from_numpy(rng.normal(size=(p, n)).astype(np.float32)).to(cuda_device,
                                                                         torch.bfloat16)
     rmap = IG.mask_read_map(cell, cells)
-    before = IG.MASK_READ_GRAD.launches
+    before = NL.LAUNCHES["mask_read_grad"]
     got = IG.mask_read_grad(g, cell, rmap, cells)
     again = IG.mask_read_grad(g, cell, rmap, cells)
     want = IG.mask_read_grad_reference(g, cell, cells)
     torch.cuda.synchronize()
-    assert IG.MASK_READ_GRAD.launches == before + 2
+    assert NL.LAUNCHES["mask_read_grad"] == before + 2
     assert got.dtype == torch.bfloat16 and got.shape == (p, cells)
     assert torch.equal(got, again)
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
@@ -392,10 +393,10 @@ def test_cuda_mask_read_map_and_grad_bit_equal_to_plain(cuda_device, case):
     across two runs, one count a launch."""
     name, p, grid, n, kind = case
     g, cell, keep, cells = MC.mask_case(p, grid, n, kind, cuda_device, 7)
-    before = (IG.MASK_READ_MAP.launches, IG.MASK_READ_GRAD.launches)
+    before = (NL.LAUNCHES["mask_read_map"], NL.LAUNCHES["mask_read_grad"])
     rec = MC.check_mask_case(g, cell, keep, cells, MC.FORCED_UNIT.get(kind))
     torch.cuda.synchronize()
-    assert (IG.MASK_READ_MAP.launches, IG.MASK_READ_GRAD.launches) == (before[0] + 2,
+    assert (NL.LAUNCHES["mask_read_map"], NL.LAUNCHES["mask_read_grad"]) == (before[0] + 2,
                                                                         before[1] + 2)
     assert rec["map_bit_equal"] and rec["map_bit_identical"], rec
     assert rec["bit_equal"] and rec["bit_identical"], rec
@@ -408,15 +409,15 @@ def test_cuda_mask_read_map_and_grad_bit_equal_to_plain(cuda_device, case):
 @pytest.mark.cuda
 def test_cuda_mask_read_map_refuses_cpu_tensors_and_big_grids(cuda_device):
     cell = torch.zeros((2, 40), dtype=torch.int32)
-    before = IG.MASK_READ_MAP.launches
+    before = NL.LAUNCHES["mask_read_map"]
     with pytest.raises(ValueError):
-        IG.MASK_READ_MAP(cell, 27)
+        IG.mask_read_map_kernel(cell, 27)
     with pytest.raises(ValueError):
-        IG.MASK_READ_MAP(cell.to(cuda_device), 27, torch.ones((2, 40), dtype=torch.bool))
-    big = IG.MASK_READ_MAP.max_cells(cell.to(cuda_device).device) + 1
+        IG.mask_read_map_kernel(cell.to(cuda_device), 27, torch.ones((2, 40), dtype=torch.bool))
+    big = IG.map_max_cells(cell.to(cuda_device).device) + 1
     with pytest.raises(ValueError, match="tiling over cells"):
-        IG.MASK_READ_MAP(cell.to(cuda_device), big)
-    assert IG.MASK_READ_MAP.launches == before
+        IG.mask_read_map_kernel(cell.to(cuda_device), big)
+    assert NL.LAUNCHES["mask_read_map"] == before
 
 
 @pytest.mark.cuda
@@ -432,7 +433,7 @@ def test_cuda_index_reads_backward_through_the_kernels(cuda_device, dt):
     grads = []
     for composite in (False, True):
         f = feats.clone().requires_grad_(True)
-        before = IG.ROI_CROP_GRAD.launches
+        before = NL.LAUNCHES["roi_crop_grad"]
         if composite:
             live = (idx >= 0)[..., None].to(f.dtype)
             out = torch.sum(f[idx.clamp(0, 299).long()] * live * w[..., None].to(f.dtype), 0)
@@ -440,7 +441,7 @@ def test_cuda_index_reads_backward_through_the_kernels(cuda_device, dt):
             out = IG.corner_gather(f, idx, w)
         out.backward(g.reshape(4, 27, 16))
         torch.cuda.synchronize()
-        assert IG.ROI_CROP_GRAD.launches == before + (0 if composite else 1)
+        assert NL.LAUNCHES["roi_crop_grad"] == before + (0 if composite else 1)
         grads.append((out.detach(), f.grad))
     assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
 
@@ -452,7 +453,7 @@ def test_cuda_index_reads_backward_through_the_kernels(cuda_device, dt):
     grads = []
     for composite in (False, True):
         m = mask.clone().requires_grad_(True)
-        before = IG.MASK_READ_GRAD.launches
+        before = NL.LAUNCHES["mask_read_grad"]
         bf = m.to(torch.bfloat16)
         if composite:
             out = bf.reshape(3, -1)[torch.arange(3, device=cuda_device)[:, None], cell.long()]
@@ -460,7 +461,7 @@ def test_cuda_index_reads_backward_through_the_kernels(cuda_device, dt):
             out = IG.mask_read(bf, cell)
         out.to(m.dtype).backward(ct.to(m.dtype))
         torch.cuda.synchronize()
-        assert IG.MASK_READ_GRAD.launches == before + (0 if composite else 1)
+        assert NL.LAUNCHES["mask_read_grad"] == before + (0 if composite else 1)
         grads.append((out.detach(), m.grad))
     assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
 
@@ -468,11 +469,11 @@ def test_cuda_index_reads_backward_through_the_kernels(cuda_device, dt):
     # entries, one launch of each kernel, the composite's gradient
     keep = torch.from_numpy(rng.random((3, 500)) < 0.3).to(cuda_device)
     m = mask.clone().requires_grad_(True)
-    before = (IG.MASK_READ_MAP.launches, IG.MASK_READ_GRAD.launches)
+    before = (NL.LAUNCHES["mask_read_map"], NL.LAUNCHES["mask_read_grad"])
     out = IG.mask_read(m.to(torch.bfloat16), cell, keep)
     out.to(m.dtype).backward(torch.where(keep, ct, 0.0).to(m.dtype))
     torch.cuda.synchronize()
-    assert (IG.MASK_READ_MAP.launches, IG.MASK_READ_GRAD.launches) == (before[0] + 1,
+    assert (NL.LAUNCHES["mask_read_map"], NL.LAUNCHES["mask_read_grad"]) == (before[0] + 1,
                                                                         before[1] + 1)
     c = mask.clone().requires_grad_(True)
     bf = c.to(torch.bfloat16)
@@ -487,12 +488,12 @@ def test_cuda_optimizer_kernels_bit_equal_to_plain(cuda_device, case):
     name, sizes, kind, grads, count, ema = case
     shapes = OC.case_shapes(sizes)
     lists = OC.optim_case(cuda_device, shapes, grads, seed=len(shapes), layout=OC.layout(name))
-    before = (OPT.GLOBAL_NORM.launches, OPT.OPTIM_APPLY.launches)
+    before = (NL.LAUNCHES["global_norm"], NL.LAUNCHES["optim_apply"])
     got, again = (OC.run_optim(lists, kind, count, ema, kernel=True) for _ in range(2))
     want = OC.run_optim(lists, kind, count, ema, kernel=False)
     torch.cuda.synchronize()
     launches = len(OPT.chunk_plan([g.numel() for g in lists["grads"]])[1])
-    assert (OPT.GLOBAL_NORM.launches - before[0], OPT.OPTIM_APPLY.launches - before[1]) == (
+    assert (NL.LAUNCHES["global_norm"] - before[0], NL.LAUNCHES["optim_apply"] - before[1]) == (
         0 if kind == "ema" else 2 * (launches + 1), 2 * launches)
     for what, g, a, w in zip(("norm", "params", "mu", "nu", "ema"), got, again, want):
         assert OC.same_bits(g, a), f"{name}: {what} differs run to run"
@@ -517,11 +518,11 @@ def test_cuda_optimizer_kernels_refuse_a_cpu_tensor(cuda_device):
 @pytest.mark.parametrize("name", [c[0] for c in NC.NMS_CASES])
 def test_cuda_nms_kernel_bit_equal_to_plain(cuda_device, name):
     c = NC.nms_case(name, cuda_device, seed=7)
-    before = PN.NMS.launches
+    before = NL.LAUNCHES["nms_3d"]
     got, again = (PN.nms_3d(c["boxes"], c["scores"], c["valid"], c["threshold"], c["p"])
                   for _ in range(2))
     want = NC.run_plain(c)
-    assert PN.NMS.launches == before + 2
+    assert NL.LAUNCHES["nms_3d"] == before + 2
     for what, g, a, w in zip(("keep_idx", "keep_mask"), got, again, want):
         assert torch.equal(g, a), f"{name}: {what} differs run to run"
         assert torch.equal(g, w), f"{name}: {what} differs from the plain loop"
@@ -538,9 +539,9 @@ def test_cuda_select_proposals_one_nms_launch(cuda_device, monkeypatch):
         cuda_device)
     valid = torch.from_numpy(rng.random((b, m)) < 0.8).to(cuda_device)
     cfg = RPNConfig(num_proposals=128, pre_nms_topk=512)
-    before = PN.NMS.launches
+    before = NL.LAUNCHES["nms_3d"]
     got = PRpn.select_proposals(obj, boxes, valid, cfg)
-    assert PN.NMS.launches == before + 1
+    assert NL.LAUNCHES["nms_3d"] == before + 1
     monkeypatch.setattr(PN, "nms_3d", lambda bx, s, v, t, p: NC.run_plain(
         {"boxes": bx, "scores": s, "valid": v, "threshold": t, "p": p}))
     want = PRpn.select_proposals(obj, boxes, valid, cfg)

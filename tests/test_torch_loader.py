@@ -26,6 +26,7 @@ A test that runs past its limit fails, in that test, either way.
 """
 
 import contextlib
+import dataclasses
 import gc
 import os
 import signal
@@ -41,12 +42,12 @@ import torch
 from sparse_rcnn_tpu.config import load_config as jax_load_config
 from sparse_rcnn_tpu.data import pipeline as JP
 from sparse_rcnn_tpu.train import loop as JTL
-from sparse_rcnn_tpu_torch import native
 from sparse_rcnn_tpu_torch.config import load_config
 from sparse_rcnn_tpu_torch.data import pipeline, synthetic
 from sparse_rcnn_tpu_torch.data.pipeline import (VOXEL_KEYS, Loader, collate, device_batches,
                                                  host_voxelize_scene)
 from sparse_rcnn_tpu_torch.models.transfer import from_flax
+from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.train import loop as TL
 from tests.test_torch_dense_tail import jax_variables
 
@@ -234,8 +235,7 @@ def test_device_batches_carry_voxel_tables():
 def test_host_voxelize_build_failure_raises(tmp_path, monkeypatch):
     bad = tmp_path / "broken.cpp"
     bad.write_text("#error this source does not build\n")
-    monkeypatch.setattr(native, "SOURCE", bad)
-    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(NL, "HOST", dataclasses.replace(NL.HOST, source=bad))
     cfg = load_config(overrides=_ov(host_voxelize=True))
     with pytest.raises(RuntimeError, match="host library build failed") as err:
         Loader(cfg)

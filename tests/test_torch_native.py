@@ -4,9 +4,15 @@ JAX package's and against the port's device path, as
 overflow and the submanifold rulebook bit-exact; voxel features equal to
 JAX's C++ (the same sums) and within 1e-5 (rtol and atol) of the device
 path's, whose segment sum may pair the f32 terms differently. An overflowing scene
-and anisotropic voxel sizes included. Also: the build lands in ``_build/``
-under a name keyed by the source, and a source that does not compile
-raises with the compiler's message."""
+and anisotropic voxel sizes included. Also, for the host core and a CUDA
+library through the package's one builder: the build lands in ``_build/``
+under a name keyed by the source's text and the flags, and a build that
+fails (a source that does not compile, or no ``nvcc`` on this machine)
+raises ``RuntimeError`` naming the compiler."""
+
+import dataclasses
+import hashlib
+import re
 
 import numpy as np
 import pytest
@@ -14,6 +20,7 @@ import torch
 
 from sparse_rcnn_tpu import native as jax_native
 from sparse_rcnn_tpu_torch import native
+from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.ops import coords as PC
 from sparse_rcnn_tpu_torch.ops import rulebook as PR
 from sparse_rcnn_tpu_torch.ops import voxelize as PV
@@ -70,18 +77,30 @@ def test_subm_rulebook_matches_jax_native_and_device(kernel):
     np.testing.assert_array_equal(got, dev.numpy())
 
 
-def test_build_is_keyed_by_source_and_failure_raises(tmp_path, monkeypatch):
-    so = native.build()
-    assert so.parent == native.BUILD_DIR and so.name.startswith("libsparse_host_")
-    assert native.build() == so                       # built once per source
-    bad = tmp_path / "broken.cpp"
-    bad.write_text(native.SOURCE.read_text() + "\nthis is not C++;\n")
-    monkeypatch.setattr(native, "SOURCE", bad)
-    monkeypatch.setattr(native, "_lib", None)
-    with pytest.raises(RuntimeError, match="host library build failed") as err:
-        native.load()
-    assert "error" in str(err.value)                  # the compiler's message
-    assert not native.available()
+@pytest.mark.parametrize("name", ["sparse_host", "nms"])
+def test_build_is_keyed_by_source_and_failure_raises(name, tmp_path, monkeypatch):
+    lib = next(x for x in NL.LIBRARIES if x.name == name)
+    key = hashlib.sha1(lib.source.read_bytes() + " ".join(lib.flags).encode()).hexdigest()[:12]
+    assert NL.library_path(lib) == NL.BUILD_DIR / f"lib{name}_{key}.so"
+    assert NL.library_path(dataclasses.replace(lib, flags=lib.flags + ("-g",))) \
+        != NL.library_path(lib)
+    bad = tmp_path / f"broken{lib.source.suffix}"
+    bad.write_text(lib.source.read_text() + "\nthis is not C++;\n")
+    broken = dataclasses.replace(lib, source=bad)
+    assert NL.library_path(broken) != NL.library_path(lib)
+    if lib is NL.HOST:
+        so = native.build()
+        assert so == NL.library_path(lib) and native.build() == so   # built once per source
+        monkeypatch.setattr(NL, "HOST", broken)
+        load = native.load
+    else:                        # here nvcc is missing; on the card the source fails
+        load = lambda: NL.load(broken)      # noqa: E731
+    with pytest.raises(RuntimeError, match=f"{name} library build failed") as err:
+        load()
+    assert re.search(re.escape(lib.compiler), str(err.value))   # the command
+    if lib is NL.HOST:
+        assert "error" in str(err.value)              # the compiler's message
+        assert not native.available()
 
 
 def test_bad_arguments_raise():

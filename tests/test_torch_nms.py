@@ -13,6 +13,7 @@ import torch
 from benchmarks import nms_cases as NC
 from sparse_rcnn_tpu_torch import config as PCfg
 from sparse_rcnn_tpu_torch.models import rpn as PRpn
+from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.ops import nms as PN
 from sparse_rcnn_tpu_torch.utils import profiling
 
@@ -20,10 +21,10 @@ from sparse_rcnn_tpu_torch.utils import profiling
 @pytest.mark.parametrize("name", [c[0] for c in NC.NMS_CASES])
 def test_cpu_nms_is_the_plain_loop_per_scene(name):
     c = NC.nms_case(name, "cpu", seed=3)
-    before = PN.NMS.launches
+    before = NL.LAUNCHES["nms_3d"]
     got = PN.nms_3d(c["boxes"], c["scores"], c["valid"], c["threshold"], c["p"])
     want = NC.run_plain(c)
-    assert PN.NMS.launches == before
+    assert NL.LAUNCHES["nms_3d"] == before
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     # a scene alone gives the same as in its batch, and -1 exactly where nothing is kept
@@ -35,7 +36,7 @@ def test_cpu_nms_is_the_plain_loop_per_scene(name):
 def test_nms_kernel_refuses_cpu_tensors():
     c = NC.nms_case("ragged", "cpu")
     with pytest.raises(ValueError):
-        PN.NMS(c["boxes"], c["scores"], c["valid"], c["threshold"], c["p"])
+        PN.nms_3d_kernel(c["boxes"], c["scores"], c["valid"], c["threshold"], c["p"])
 
 
 def test_near_threshold_cases_straddle_the_float_threshold():
@@ -66,11 +67,11 @@ def test_select_proposals_on_the_cpu_launches_no_kernel(rng):
                              .astype(np.float32))
     valid = torch.from_numpy(rng.random((2, 300)) < 0.9)
     cfg = PCfg.RPNConfig(num_proposals=32, pre_nms_topk=96)
-    before = PN.NMS.launches
+    before = NL.LAUNCHES["nms_3d"]
     with profiling.recording() as spans:
         with profiling.span("select"):
             props, scores, mask = PRpn.select_proposals(obj, boxes, valid, cfg)
-    assert PN.NMS.launches == before and spans[0].counts is None
+    assert NL.LAUNCHES["nms_3d"] == before and spans[0].counts is None
     assert props.shape == (2, 32, 6) and scores.shape == mask.shape == (2, 32)
     for b in range(2):
         vals, idx, m = PN.topk_rows(obj[b], valid[b], 96)

@@ -29,6 +29,7 @@ import torch
 from sparse_rcnn_tpu.config import load_config as jax_load_config
 from sparse_rcnn_tpu.train import loop as JTL
 from sparse_rcnn_tpu_torch.config import load_config
+from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.ops import optim as OPT
 from sparse_rcnn_tpu_torch.train import loop as TL
 from benchmarks.optim_cases import config_shapes
@@ -146,10 +147,10 @@ def test_cpu_optimizer_launches_no_kernel_and_updates_moments_in_place(train):
     state = opt.init(params)
     mu, nu = state.mu, state.nu
     ema = [p.clone() for p in params] if cfg.train.ema > 0 else None
-    before = (OPT.GLOBAL_NORM.launches, OPT.OPTIM_APPLY.launches)
+    before = (NL.LAUNCHES["global_norm"], NL.LAUNCHES["optim_apply"])
     for _ in range(2):
         opt.apply(state, params, _lists(rng, SHAPES), ema, np.float32(0.5))
-    assert (OPT.GLOBAL_NORM.launches, OPT.OPTIM_APPLY.launches) == before
+    assert (NL.LAUNCHES["global_norm"], NL.LAUNCHES["optim_apply"]) == before
     assert state.mu is mu and all(a is b for a, b in zip(state.mu, mu))
     assert state.nu is nu and (nu is None or all(a is b for a, b in zip(state.nu, nu)))
     assert state.count == (1 if cfg.train.grad_accum_steps > 1 else 2)

@@ -21,6 +21,7 @@ import torch
 
 from sparse_rcnn_tpu.ops import pallas_conv as JPC
 from sparse_rcnn_tpu.ops import sparse_conv as JSC
+from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.ops import sparse_conv as SC
 from tests.test_torch_kernel_cuda import (CASES, TOL, TORCH_DT, apply_liveness, case_id,
                                           make_inputs)
@@ -71,7 +72,7 @@ def test_sparse_conv_t_checks_transpose_shape():
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel path takes CUDA tensors only: it raises before any build."""
     feats, idx, w = make_inputs(2, 8, 4, 4, 30, 20)
-    before = SC.KERNEL.launches
+    before = NL.LAUNCHES["forward"]
     with pytest.raises(ValueError, match="CUDA"):
-        SC.KERNEL(torch.from_numpy(feats), torch.from_numpy(idx), torch.from_numpy(w))
-    assert SC.KERNEL.launches == before
+        SC.conv_kernel(torch.from_numpy(feats), torch.from_numpy(idx), torch.from_numpy(w))
+    assert NL.LAUNCHES["forward"] == before

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from sparse_rcnn_tpu.ops import sparse_conv as JSC
+from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.ops import sparse_conv as SC
 from tests.test_torch_kernel_cuda import (TOL, TORCH_DT, apply_rulebook_liveness,
                                           make_rulebook_inputs)
@@ -122,10 +123,10 @@ def test_wgrad_wrapper_refuses_cpu_tensors():
     """The wgrad kernel path takes CUDA tensors only: it raises before any build."""
     feats, idx, t_idx, w = make_rulebook_inputs(2, 8, 4, 4, 30, 20)
     g = torch.zeros((2, 20, 4))
-    before = SC.WGRAD.launches
+    before = NL.LAUNCHES["wgrad"]
     with pytest.raises(ValueError, match="CUDA"):
-        SC.WGRAD(torch.from_numpy(feats), torch.from_numpy(t_idx), g)
-    assert SC.WGRAD.launches == before
+        SC.wgrad_kernel(torch.from_numpy(feats), torch.from_numpy(t_idx), g)
+    assert NL.LAUNCHES["wgrad"] == before
 
 
 def test_wgrad_chunks_cover_rows():
