@@ -8,8 +8,8 @@ nonzero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the CUDA libraries from ``sparse_rcnn_tpu_torch/ops/csrc`` (the
-   sparse conv's, the indexing backwards', the optimizer's and the NMS's,
-   one ``nvcc`` each, together);
+   sparse conv's, the indexing backwards', the optimizer's, the NMS's and
+   the norm's, one ``nvcc`` each, together);
 3. the forward kernel against its plain version on random inputs at every
    conv shape of a config-1 forward (f32 and bf16), a ragged M, a
    config-2-sized shape and the edge cases of its dead-tile skip and copy
@@ -46,8 +46,19 @@ nonzero:
    identical boxes, no valid candidate, fewer than P, IoUs one ulp either
    side of the threshold, the card's order of ``torch.prod``, NaN scores
    and boxes), with kernel, plain, host and bound times at select's shapes;
+   then the masked BN + ReLU's kernels (``bn_stats``, ``bn_apply``,
+   ``bn_grad``, ``ops/batch_norm.py``) against the plain chain
+   (``MaskedBatchNorm.normalize``, ``torch.relu``, their autograd) on
+   ``benchmarks/bn_cases.py``'s cases (every width 32-256 in f32 and bf16,
+   ragged scenes, a scene of padding alone, the running statistics, a C
+   that takes no 16-byte lane, config 2's first scale) and on the norms of
+   one config-1 and one config-2 train step: the apply and the input
+   gradient bit-equal given the same vectors, the statistics and the
+   gradients within that file's tolerances, bit-identical across two runs,
+   the step's launches by role, and every norm's kernel, bound and chain
+   times (``bn_steps``);
 4. the config-1 inference slice on the card: ``infer.main`` on 3 val scenes
-   (the forward count must rise by 10 per forward); tie-breaking of sort
+   (the forward count must rise by 10 per forward, bn_apply's by 8); tie-breaking of sort
    and argmax on the card; then the same weights and scenes on the CPU,
    where the plain versions run: site tables and rulebooks bit-exact,
    floats to tolerance, proposal masks and classes exact; warm ms per scene
@@ -186,7 +197,11 @@ nonzero:
    bit-equal; ``global_norm``
    and ``optim_apply`` likewise; ``nms_3d`` with its launches in one
    config-1 train step and eval step, and over phases 4-12 against the
-   detector's select calls on the card, one each), then as the last line ``{"ok": true,
+   detector's select calls on the card, one each; ``bn_stats``, ``bn_apply``
+   and ``bn_grad`` with config 2's and config 1's train-step figures; the
+   norm's launches are held exactly where a path's norms are counted
+   (phases 3, 4, 6, 8) and elsewhere by kind: a training path launches all
+   three, a forward path bn_apply alone), then as the last line ``{"ok": true,
    "device": {...}}``.
 
 TF32 is off throughout (cuDNN and matmul) and cuDNN runs deterministic
@@ -219,6 +234,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import sparse_rcnn_tpu_torch.train.__main__ as train_cli
+from benchmarks import bn_cases as BC
 from benchmarks import eval_step_syncs as SYNCS
 from benchmarks import mask_map_cases as MC
 from benchmarks import nms_cases as NC
@@ -400,14 +416,21 @@ QUICK_REPS = {"kernel": dict(reps=10, inner=5), "plain": dict(reps=5, inner=1),
 # launches of global_norm (partials and finish) and optim_apply in one train
 # step: every config's parameter list fits one launch (OPT.MAX_TENSORS)
 OPT_PER_STEP = (2, 1)
+# the masked BN + ReLU's roles: bn_stats twice a norm's training forward (a
+# recomputed one too), bn_apply once a forward, bn_grad twice a norm's
+# backward; config 1 has 8 norms (widths [16, 32], one block a scale)
+BN_ROLES = ("bn_stats", "bn_apply", "bn_grad")
+C1_NORMS = 8
 # the roles of NL.LAUNCHES that a path's launches are held to (nms_3d is held
 # to the select calls on the card, after phase 12): forward, dgrad (the
 # stem's input needs none), wgrad, roi_crop_grad, mask_read_grad and
 # mask_read_map (once a scene; config 1 trains on batches of 1), then the
-# optimizer's; all but the last two are loss_and_grads' alone
+# optimizer's, then the norm's; all but the optimizer's are loss_and_grads'
+# alone
 ROLES = ("forward", "dgrad", "wgrad", "roi_crop_grad", "mask_read_grad", "mask_read_map",
-         "global_norm", "optim_apply")
-PER_STEP = dict(zip(ROLES, (10, 9, 10, 1, 1, 1, *OPT_PER_STEP)))
+         "global_norm", "optim_apply", *BN_ROLES)
+PER_STEP = dict(zip(ROLES, (10, 9, 10, 1, 1, 1, *OPT_PER_STEP, 2 * C1_NORMS, C1_NORMS,
+                            2 * C1_NORMS)))
 # card against CPU, one config-1 step, per parameter relative to the
 # largest entry of its gradient. Outside the RoI head: with the mask weight
 # 0, f32 sums of up to 32768*27 products in other orders through ~20
@@ -815,15 +838,14 @@ def phase_slice(out_dir: str, no_ckpt: str) -> tuple:
                 f"train.checkpoint_dir={no_ckpt}", "--out-dir", os.path.join(out_dir, "infer"),
                 "--device", DEVICE])
     torch.cuda.synchronize()
-    got = launched(before)
-    launches = got.pop("forward")
-    if any(got.values()):
-        raise AssertionError(f"inference launched backward or optimizer kernels: {got}")
+    launches = launched(before)
     forwards = -(-n_scenes // cfg.data.batch_size)
-    log(f"  sparse_conv launches in infer.main: {launches} "
-        f"({forwards} forwards, 10 expected per forward)")
-    if launches != 10 * forwards:
-        raise AssertionError(f"expected {10 * forwards} kernel launches, got {launches}")
+    want = {**want_launches(10 * forwards), "bn_stats": 0, "bn_apply": C1_NORMS * forwards,
+            "bn_grad": 0}
+    log(f"  launches in infer.main: {launches} ({forwards} forwards; 10 sparse_conv and "
+        f"{C1_NORMS} bn_apply expected per forward, nothing else)")
+    if launches != want:
+        raise AssertionError(f"infer.main launched {launches}, expected {want}")
     for i in range(n_scenes):
         with np.load(os.path.join(out_dir, "infer", f"scene{i:04d}.npz")) as f:
             if not (np.isfinite(f["scores"]).all() and f["points"].shape[1] == 3
@@ -1435,6 +1457,87 @@ def phase_nms() -> tuple:
     return recs, timed
 
 
+# --------------------------------------------------------------------------
+# phase 3, the norm: bn_stats, bn_apply and bn_grad against the plain chain
+
+
+def bn_step(config: str, sets: list) -> dict:
+    """The norms of one train step of ``config`` (``BC.measure_step``: each
+    first forward's kernels held to the chain, each norm timed through the
+    kernels, the chain and each role alone) and the step's launches by
+    role, held to its norms; the sums."""
+    res = BC.measure_step(config, sets, DEVICE, lambda fn: time_ms(
+        fn, **{**QUICK_REPS["kernel"], "spin": OPTIM_SPIN_CYCLES}))
+    rec = {"launches": res["launches"], **res["total"]}
+    want = norm_launches(res["modules"], rec["recomputed"], train_steps=1)
+    if rec["launches"] != want:
+        raise AssertionError(f"{res['config']}: one train step launched {rec['launches']}, "
+                             f"expected {want}")
+    log(f"  {res['config']}: {rec['norms']} norms, {rec['calls']} calls ({rec['recomputed']} "
+        f"recomputed) a step; launches {rec['launches']}; kernels {rec['kernel_ms']:.3f} ms "
+        f"(bn_stats {rec['bn_stats_ms']:.3f}, bn_apply {rec['bn_apply_ms']:.3f}, bn_grad "
+        f"{rec['bn_grad_ms']:.3f}), bound {rec['bound_ms']:.3f}, chain {rec['plain_ms']:.3f}; "
+        f"vectors and apply bit_equal {rec['vectors_bit_equal']} {rec['apply_bit_equal']}, "
+        f"input gradient bit_equal {rec['grad_input_bit_equal']}, bit_identical "
+        f"{rec['bit_identical']}, stats gap {rec['stats_gap']:.2e}, gradient gap "
+        f"{rec['grad_gap']:.2e}")
+    return rec
+
+
+def phase_batch_norm() -> tuple:
+    """Every case of ``BC.BN_CASES``, then config 1's and config 2's norms
+    of one train step (``bn_step``). Returns (case records, {config: step
+    record})."""
+    log("[phase 3, norm] bn_stats, bn_apply and bn_grad vs the plain chain "
+        "(MaskedBatchNorm.normalize + torch.relu and their autograd): the vectors, the apply "
+        "and the input gradient bit-equal given the same sums, the statistics and gradients "
+        "within benchmarks/bn_cases.py's tolerances, bit-identical across two runs")
+    recs = []
+    for i, case in enumerate(BC.BN_CASES):
+        rec = {"case": BC.case_id(case), **BC.compare(BC.make_case(*case, DEVICE, 1200 + i))}
+        log(f"  {rec['case']:22s} vectors/apply bit_equal={rec['vectors_bit_equal']}/"
+            f"{rec['apply_bit_equal']} input gradient "
+            f"bit_equal={rec['grad_input_bit_equal']} bit_identical={rec['bit_identical']} "
+            f"stats gap {max(rec['stats_gap_mean'], rec['stats_gap_var']):.2e} gradient gap "
+            f"{max(rec['grad_gap'].values()):.2e} {'ok' if rec['ok'] else 'MISMATCH'}")
+        recs.append(rec)
+    steps = {"config1_tiny_5cm": bn_step(CONFIG1, []), "config2_scannet_2cm": bn_step(CONFIG2,
+                                                                                      C2_SET)}
+    bad = [r["case"] for r in recs if not r["ok"]] + [k for k, r in steps.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"the norm's kernels disagree with the plain chain: {bad}")
+    return recs, steps
+
+
+def bn_entry(role: str, recs: list, steps: dict, paths: dict) -> dict:
+    """One norm role of the ``kernels`` line: config 2's train step at the
+    top level, config 1's under ``config1``."""
+    def fig(r):
+        return {"ms": r[f"{role}_ms"], "launches_per_step": r["launches"][role]}
+
+    def norm(r):
+        return {"kernel_ms": r["kernel_ms"], "bound_ms": r["bound_ms"],
+                "plain_ms": r["plain_ms"], "stats_gap": r["stats_gap"],
+                "grad_gap": r["grad_gap"]}
+    every = recs + list(steps.values())
+    return {"name": role, "route": "cuda",
+            "source": "sparse_rcnn_tpu_torch/ops/csrc/batch_norm.cu",
+            "replaces": "no TPU kernel: the port's eager chain "
+                        "models/layers.py::MaskedBatchNorm.normalize + torch.relu (JAX: "
+                        "sparse_rcnn_tpu/models/layers.py MaskedBatchNorm, plain XLA)",
+            **fig(steps["config2_scannet_2cm"]),
+            "norm": norm(steps["config2_scannet_2cm"]),
+            "bit_equal": all(r["vectors_bit_equal"] and r["apply_bit_equal"]
+                             and r["grad_input_bit_equal"] and r["bit_identical"]
+                             for r in every),
+            "library": None, "bound_by": "bytes",
+            "per": "one config-2 train step's norms (bf16, dense-3, main-path inputs; norm: "
+                   "every norm's forward and backward, kernels, bytes once at 3.35 TB/s, the "
+                   "chain); config1: config 1's (f32)",
+            "config1": {**fig(steps["config1_tiny_5cm"]), "norm": norm(steps["config1_tiny_5cm"])},
+            "launches_by_path": {k: v[role] for k, v in paths.items()}}
+
+
 def count_selects() -> list:
     """Wrap the detector's ``select_proposals`` to count its calls on CUDA
     tensors in ``[0]`` of the list returned (each should launch one NMS)."""
@@ -1522,12 +1625,42 @@ def launched(before: dict) -> dict:
 
 def want_launches(fwd: int, dgrad: int = 0, wgrad: int = 0, scene_steps: int = 0,
                   steps: int = 0) -> dict:
-    """The ``launched`` a path of ``steps`` train steps should give: the two
-    indexing backwards and the mask read's map launch once per scene per
-    train step, the optimizer's kernels ``OPT_PER_STEP`` a step; none of them
-    in an eval."""
+    """The ``launched`` a path of ``steps`` train steps should give, but for
+    the norm's roles (:func:`launches_match`): the two indexing backwards
+    and the mask read's map launch once per scene per train step, the
+    optimizer's kernels ``OPT_PER_STEP`` a step; none of them in an eval."""
     return dict(zip(ROLES, (fwd, dgrad, wgrad, scene_steps, scene_steps, scene_steps,
                             OPT_PER_STEP[0] * steps, OPT_PER_STEP[1] * steps)))
+
+
+def norm_launches(norms: int, recomputed: int = 0, train_steps: int = 0,
+                  eval_forwards: int = 0, eval_norms: int = None) -> dict:
+    """The norm's launches of ``train_steps`` train steps of a model with
+    ``norms`` norms (``recomputed`` of them again under remat) and of
+    ``eval_forwards`` forwards of its eval form (``eval_norms``, by default
+    ``norms``)."""
+    every = train_steps * (norms + recomputed)
+    return {"bn_stats": 2 * every,
+            "bn_apply": every + eval_forwards * (norms if eval_norms is None else eval_norms),
+            "bn_grad": 2 * train_steps * norms}
+
+
+def launches_match(got: dict, want: dict) -> bool:
+    """``got`` (:func:`launched`) against ``want``: every role ``want``
+    names exactly; the norm's roles it does not name by the path's kind: a
+    path that trains (wgrad launches) launches all three, bn_stats and
+    bn_grad in pairs; one that only runs forwards launches bn_apply alone;
+    one with no forward none."""
+    if any(got[r] != n for r, n in want.items()):
+        return False
+    stats, apply, grad = (got[r] for r in BN_ROLES)
+    if all(r in want for r in BN_ROLES):
+        return True
+    if want.get("wgrad"):
+        return min(stats, apply, grad) > 0 and stats % 2 == 0 and grad % 2 == 0
+    if want.get("forward"):
+        return apply > 0 and stats == grad == 0
+    return stats == apply == grad == 0
 
 
 def grad_errors(grads_a, grads_b, names) -> dict:
@@ -1929,7 +2062,8 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
     init = TL.build_model(tcfg, DEVICE, torch.Generator().manual_seed(cfg.train.seed))
     ev = TL.eval_model(cfg, init)
     n_eval, n_train = sparse_convs(ev), sparse_convs(init)
-    rep = {"sparse_convs": {"eval": n_eval, "train": n_train}}
+    norms = BC.count_norms(init)
+    rep = {"sparse_convs": {"eval": n_eval, "train": n_train}, "norms": norms}
 
     # the main paths, through the entry points a user calls
     before = dict(NL.LAUNCHES)
@@ -1939,9 +2073,9 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
                 "--out-dir", os.path.join(out_dir, "infer_config2"), "--device", DEVICE])
     torch.cuda.synchronize()
     rep["launches_infer"] = launched(before)
-    log(f"  launches in infer.main, one batch: {rep['launches_infer']}, expected "
-        f"{want_launches(n_eval)}")
-    if rep["launches_infer"] != want_launches(n_eval):
+    want = {**want_launches(n_eval), **norm_launches(norms, eval_forwards=1)}
+    log(f"  launches in infer.main, one batch: {rep['launches_infer']}, expected {want}")
+    if rep["launches_infer"] != want:
         raise AssertionError(f"config-2 infer.main launched {rep['launches_infer']}")
     log_path = os.path.join(out_dir, "train_log_config2.jsonl")
     if os.path.exists(log_path):
@@ -1953,9 +2087,10 @@ def phase_config2(out_dir: str, tmp_dir: str) -> dict:
                             "--device", DEVICE, "--log-file", log_path])
     torch.cuda.synchronize()
     rep["launches_train"] = launched(before)
-    want = want_launches(C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * (n_train - 1),
-                         C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * cfg.data.batch_size,
-                         steps=C2_TRAIN_STEPS)
+    want = {**want_launches(C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * (n_train - 1),
+                            C2_TRAIN_STEPS * n_train, C2_TRAIN_STEPS * cfg.data.batch_size,
+                            steps=C2_TRAIN_STEPS),
+            **norm_launches(norms, train_steps=C2_TRAIN_STEPS)}
     log(f"  launches in train.main over {C2_TRAIN_STEPS} steps: {rep['launches_train']}, "
         f"expected {want}")
     if rep["launches_train"] != want:
@@ -2151,7 +2286,8 @@ def run_cli(fn, argv, what: str):
 
 
 def expect(got, want, what: str) -> None:
-    if got != want:
+    """``got`` launches against ``want`` (:func:`launches_match`)."""
+    if not launches_match(got, want):
         raise AssertionError(f"{what}: {got}, expected {want}")
 
 
@@ -3660,6 +3796,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     index_recs = phase_index_grad()
     optim_recs, optim_shapes = phase_optim()
     nms_recs, nms_timed = phase_nms()
+    bn_recs, bn_steps = phase_batch_norm()
     selects = count_selects()
     nms_before = NL.LAUNCHES["nms_3d"]
     launches, split, main_path = phase_slice(args.out_dir, os.path.join(tmp_dir, "none"))
@@ -3690,7 +3827,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
     src = "sparse_rcnn_tpu_torch/ops/csrc/sparse_conv.cu"
     records = os.path.relpath(os.path.join(args.out_dir, "kernels.json"), ROOT)
     fwd, dgrad, wgrad = (c2["launches_train"][r] for r in ROLES[:3])
-    paths = {"config1 infer.main (3 scenes)": want_launches(launches),
+    paths = {"config1 infer.main (3 scenes)": launches,
              f"config1 train.main ({TRAIN_STEPS} steps)": train["launches"],
              "config2 infer.main (1 batch)": c2["launches_infer"],
              f"config2 train.main ({C2_TRAIN_STEPS} steps)": c2["launches_train"],
@@ -3745,6 +3882,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
                     ":286-289 (update, apply_updates), :298-312 (the EMA)",
                     c2["launches_train"], optim_recs, optim_shapes, paths),
         nms_entry(nms_recs, nms_timed, nms_paths),
+        *(bn_entry(role, bn_recs, bn_steps, paths) for role in BN_ROLES),
     ]}
     record = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "convs_random": recs, "convs_main_path": main_path,
@@ -3752,6 +3890,7 @@ def run(args, smi: str, t_start: float, tmp_dir: str) -> int:
               "backward_random": bwd_recs, "index_grad_edges": index_recs,
               "optim_edges": optim_recs, "optim_shapes": optim_shapes,
               "nms_cases": nms_recs, "nms_timed": nms_timed,
+              "bn_cases": bn_recs, "bn_steps": bn_steps,
               "slice_ms_per_scene": split,
               "golden_instance_points_differing": golden_flips,
               "train": train, "golden_train": golden_train, "config2": c2,

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import batch_norm as BN
 from ..ops import sparse_conv as sc
 from ..parallel import context as DPC
 from ..utils.profiling import count, span
@@ -75,7 +76,8 @@ class SubMConv3d(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over live rows only (padding rows excluded from statistics).
+    """BatchNorm over live rows only (padding rows excluded from statistics),
+    then the ReLU that follows every norm of the backbone: ``relu(BN(x))``.
 
     Training mode (``self.training``) normalises with the masked f32 batch
     statistics (biased variance) and updates the running ones as flax does:
@@ -90,6 +92,11 @@ class MaskedBatchNorm(nn.Module):
     differentiable all-reduce of ``Σ f·m`` and ``Σ m`` gives the mean, a
     second one of ``Σ (f − mean)²·m`` the variance. Every rank then holds
     the same statistics and moves its running ones identically.
+
+    On CUDA tensors the norm and its ReLU are the hand-written kernels of
+    :mod:`..ops.batch_norm` (one autograd Function, the same arithmetic);
+    on every other device :meth:`normalize`, the eager chain, and
+    ``torch.relu``.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -104,6 +111,22 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.empty(num_features))
 
     def forward(self, feats, mask):
+        if feats.device.type == "cuda":
+            return self.fused(feats, mask)
+        return torch.relu(self.normalize(feats, mask))
+
+    def fused(self, feats, mask):
+        """The norm and its ReLU as the kernels' autograd Function."""
+        if feats.dtype != self.dtype:
+            raise TypeError(f"MaskedBatchNorm of {self.dtype} takes features of that type on "
+                            f"the card, got {feats.dtype}")
+        return BN.masked_bn_relu(feats, mask, self.scale, self.bias, self.mean, self.var,
+                                 self.momentum, self.epsilon, self.training,
+                                 self.training and not _RECOMPUTING)
+
+    def normalize(self, feats, mask):
+        """The norm without its ReLU as the eager chain: the kernels' plain
+        twin, run on every device but CUDA."""
         if self.training:
             m = mask[..., None].to(torch.float32)
             f32 = feats.to(torch.float32)
@@ -193,7 +216,7 @@ def remat(block: nn.Module, *args):
 
 
 class SparseBasicBlock(nn.Module):
-    """Residual block: (BN → ReLU → SubM) × 2 + skip, pre-activation style.
+    """Residual block: (BN + ReLU → SubM) × 2 + skip, pre-activation style.
     A 1×1 projection through the centre tap when the widths differ."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
@@ -207,8 +230,8 @@ class SparseBasicBlock(nn.Module):
                      if in_features != features else None)
 
     def forward(self, feats, subm_idx, mask):
-        x = self.conv1(torch.relu(self.bn1(feats, mask)), subm_idx)
-        x = self.conv2(torch.relu(self.bn2(x, mask)), subm_idx)
+        x = self.conv1(self.bn1(feats, mask), subm_idx)
+        x = self.conv2(self.bn2(x, mask), subm_idx)
         residual = feats
         if self.proj is not None:
             c = subm_idx.shape[1] // 2

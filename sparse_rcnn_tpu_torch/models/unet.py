@@ -142,7 +142,7 @@ def _conv(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _bn(bn: MaskedBatchNorm, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
-    """Masked BN over the occupied cells of x [B, X, Y, Z, C]."""
+    """Masked BN + ReLU over the occupied cells of x [B, X, Y, Z, C]."""
     b = x.shape[0]
     return bn(x.reshape(b, -1, x.shape[-1]), occ.reshape(b, -1)).reshape(x.shape)
 
@@ -165,8 +165,8 @@ class DenseBasicBlock(nn.Module):
 
     def forward(self, x, occ):
         om = occ[..., None].to(self.dtype)
-        h = _conv(self.conv1, torch.relu(_bn(self.bn1, x, occ)), self.dtype) * om
-        h = _conv(self.conv2, torch.relu(_bn(self.bn2, h, occ)), self.dtype) * om
+        h = _conv(self.conv1, _bn(self.bn1, x, occ), self.dtype) * om
+        h = _conv(self.conv2, _bn(self.bn2, h, occ), self.dtype) * om
         residual = x
         if self.proj is not None:
             residual = _conv(self.proj, x, self.dtype) * om
@@ -220,7 +220,7 @@ class DenseTail(nn.Module):
             skips.append(x)
             occs.append(occ)
             if s < ns - 1:
-                x = torch.relu(_bn(getattr(self, f"down{s}_bn"), x, occ))
+                x = _bn(getattr(self, f"down{s}_bn"), x, occ)
                 occ = nn.functional.max_pool3d(
                     occ[:, None].to(torch.float32), 2, stride=2)[:, 0] > 0.5
                 x = _conv(getattr(self, f"down{s}_conv"), x, cd) * occ[..., None].to(cd)
@@ -229,7 +229,7 @@ class DenseTail(nn.Module):
         outputs[-1] = x
         for s in range(ns - 2, self.start - 1, -1):
             i = s - self.start
-            up = torch.relu(_bn(getattr(self, f"up{s}_bn"), outputs[i + 1], occs[i + 1]))
+            up = _bn(getattr(self, f"up{s}_bn"), outputs[i + 1], occs[i + 1])
             up = _conv(getattr(self, f"up{s}_conv"), up, cd) * occs[i][..., None].to(cd)
             x = torch.cat([up, skips[i]], dim=-1)
             for b in range(self.blocks_per_scale):
@@ -316,7 +316,7 @@ class SparseUNet(nn.Module):
                 x = getattr(self, f"enc{s}_drop")(x, generators)
             skips.append(x)
             if s < ns - 1:
-                x = torch.relu(getattr(self, f"down{s}_bn")(x, masks[s]))
+                x = getattr(self, f"down{s}_bn")(x, masks[s])
                 if self.downsample == "conv":
                     # t(down) == up
                     x = getattr(self, f"down{s}_conv")(x, scales[s].down_idx,
@@ -338,7 +338,7 @@ class SparseUNet(nn.Module):
         else:
             outputs[ns - 1] = x
         for s in range(min(n_sparse, ns - 1) - 1, -1, -1):
-            up = torch.relu(getattr(self, f"up{s}_bn")(outputs[s + 1], masks[s + 1]))
+            up = getattr(self, f"up{s}_bn")(outputs[s + 1], masks[s + 1])
             # t(up) == down
             up = getattr(self, f"up{s}_conv")(up, scales[s].up_idx, scales[s].down_idx)
             x = torch.cat([up, skips[s]], dim=-1)

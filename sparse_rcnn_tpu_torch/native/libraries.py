@@ -79,12 +79,18 @@ NMS = Library("nms", _CSRC / "nms.cu", "nvcc", {
     "nms_3d": [_V] * 3 + [_I] * 3 + [ctypes.c_float] + [_V] * 3,
     "nms_3d_max_candidates": [],
 }, flags=("-fmad=false",))
+BATCH_NORM = Library("batch_norm", _CSRC / "batch_norm.cu", "nvcc", {
+    "bn_stats": [_V] * 3 + [_I] * 4 + [_V] * 3,
+    "bn_apply": [_V] * 8 + [_I] * 3 + [ctypes.c_float] * 3 + [_I] + [_V] * 4,
+    "bn_grad_sums": [_V] * 5 + [_I] * 4 + [_V] * 3,
+    "bn_grad_input": [_V] * 7 + [_I] * 3 + [_V] * 2,
+}, flags=("-fmad=false",))
 HOST = Library("sparse_host", Path(__file__).resolve().parent / "sparse_host.cpp", "g++", {
     "voxelize_scene": [_F32, _F32, _U8, _I64, _I64, _F32, _I64, _I32, _F32, _I32,
                        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)],
     "subm_rulebook": [_I32, _I64, _I64, _I64, _I32],
 }, flags=("-O3", "-fPIC", "-std=c++17", "-shared"), restype=None)
-LIBRARIES = (SPARSE_CONV, INDEX_GRAD, OPTIM, NMS, HOST)
+LIBRARIES = (SPARSE_CONV, INDEX_GRAD, OPTIM, NMS, BATCH_NORM, HOST)
 
 
 def library_path(lib: Library) -> Path:
@@ -154,7 +160,9 @@ def load(lib: Library) -> ctypes.CDLL:
 # on feats or on the cotangent), "wgrad", "roi_crop_grad", "mask_read_map"
 # (one a call of its four kernels), "mask_read_grad", "global_norm" (each
 # partial launch and the finish), "optim_apply" (each launch of the chunk
-# plan) and "nms_3d".
+# plan), "nms_3d", and the masked BN + ReLU's "bn_stats" (each pass of the
+# statistics), "bn_apply" and "bn_grad" (the gradient's sums, the input's
+# gradient).
 LAUNCHES: collections.Counter = collections.Counter()
 
 

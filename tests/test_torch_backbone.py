@@ -121,13 +121,20 @@ def test_masked_batchnorm_train_normalisation():
     with torch.device("meta"):
         bn = PL.MaskedBatchNorm(6)
     bn = bn.to_empty(device="cpu")
-    bn.load_state_dict(from_flax(jax.device_get(v["params"]), jax.device_get(v["batch_stats"])))
-    got = bn.train()(torch.from_numpy(feats), torch.from_numpy(mask))
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
-    assert not got[~torch.from_numpy(mask)].any()          # padding rows stay zero
-    for k in ("mean", "var"):                               # flax momentum 0.9
-        np.testing.assert_allclose(getattr(bn, k).numpy(), np.asarray(upd["batch_stats"][k]),
-                                   **TOL)
+    state = from_flax(jax.device_get(v["params"]), jax.device_get(v["batch_stats"]))
+    bn.load_state_dict(state)
+    plain = PL.MaskedBatchNorm(6)
+    plain.load_state_dict(state)
+    f, m = torch.from_numpy(feats), torch.from_numpy(mask)
+    # the module is the norm and the ReLU after it; normalize is the norm alone
+    got, pre = bn.train()(f, m), plain.train().normalize(f, m)
+    np.testing.assert_allclose(pre.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.maximum(np.asarray(want), 0), **TOL)
+    for out, mod in ((got, bn), (pre, plain)):
+        assert not out[~m].any()                            # padding rows stay zero
+        for k in ("mean", "var"):                           # flax momentum 0.9
+            np.testing.assert_allclose(getattr(mod, k).numpy(),
+                                       np.asarray(upd["batch_stats"][k]), **TOL)
 
 
 def test_unsupported_backbones_raise():

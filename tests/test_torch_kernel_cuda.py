@@ -25,21 +25,32 @@ bit for bit on ``keep_idx`` and ``keep_mask``, on
 ``benchmarks/nms_cases.py``'s cases, which ``chip_smoke.py`` runs too.
 The eval pass's overlap counts (plain torch ops on the card) are held to
 the counts taken on the host from the fetched ``point_mask_bits``, and the
-mAP that ``run_eval`` scores from them to the mask path's, exactly.
+mAP that ``run_eval`` scores from them to the mask path's, exactly. The
+masked BN + ReLU kernels (``bn_stats``, ``bn_apply``, ``bn_grad``) are
+held to the plain chain on ``benchmarks/bn_cases.py``'s cases, with the
+tolerances its docstring states (the apply and the input's gradient bit
+for bit given the same vectors), and a config-3-shaped residual block,
+sparse and dense, gives the same gradients bit for bit with and without
+``remat``.
 """
 
+import copy
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from benchmarks import bn_cases as BC
 from benchmarks import mask_map_cases as MC
 from benchmarks import nms_cases as NC
 from benchmarks import optim_cases as OC
 from sparse_rcnn_tpu_torch.config import RPNConfig, load_config
 from sparse_rcnn_tpu_torch.data.pipeline import Loader
+from sparse_rcnn_tpu_torch.models import layers as PL
 from sparse_rcnn_tpu_torch.models import rpn as PRpn
+from sparse_rcnn_tpu_torch.models import unet as PU
 from sparse_rcnn_tpu_torch.native import libraries as NL
 from sparse_rcnn_tpu_torch.ops import index_grad as IG
 from sparse_rcnn_tpu_torch.ops import nms as PN
@@ -613,3 +624,67 @@ def test_cuda_eval_pass_counts_score_as_the_fetched_masks(cuda_device, monkeypat
         torch.cuda.set_sync_debug_mode(0)
     for got, k in zip(counts, EV.OVERLAP_KEYS):
         np.testing.assert_array_equal(got.cpu().numpy(), fetched[0][k])
+
+
+BN_ROLES = ("bn_stats", "bn_apply", "bn_grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BC.BN_CASES, ids=BC.case_id)
+def test_cuda_batch_norm_kernels_against_the_chain(cuda_device, case):
+    c = BC.make_case(*case, cuda_device, seed=sum(map(ord, BC.case_id(case))))
+    before = {r: NL.LAUNCHES[r] for r in BN_ROLES}
+    BC.run(c, True)
+    torch.cuda.synchronize()
+    assert {r: NL.LAUNCHES[r] - before[r] for r in BN_ROLES} == \
+        {"bn_stats": 2 * c["training"], "bn_apply": 1, "bn_grad": 2}
+    rec = BC.compare(c)
+    torch.cuda.synchronize()
+    assert rec["ok"], json.dumps(rec)
+
+
+def _remat_block(kind, device):
+    """A config-3-shaped residual block in bf16 and its inputs: "sparse" at
+    the first scale (C 32, 524,288 rows, 70 % live, a random 27-tap
+    rulebook), "dense" the tail's first scale (C 128 on the 128 x 128 x 32
+    grid, 25 % occupied)."""
+    rng = np.random.default_rng(7)
+    gen = torch.Generator().manual_seed(7)
+    if kind == "sparse":
+        block = PL.SparseBasicBlock(32, 32, dtype=torch.bfloat16)
+        m = 524288
+        mask = torch.from_numpy(np.arange(m)[None] < int(0.7 * m))
+        idx = rng.integers(0, m, size=(1, 27, m)).astype(np.int32)
+        idx[rng.random(idx.shape) < 0.3] = -1
+        shape, args = (1, m, 32), [torch.from_numpy(idx).to(device), mask.to(device)]
+    else:
+        block = PU.DenseBasicBlock(128, 128, dtype=torch.bfloat16)
+        occ = torch.from_numpy(rng.random((1, 128, 128, 32)) < 0.25)
+        mask, shape, args = occ, (1, 128, 128, 32, 128), [occ.to(device)]
+    PL.init_params(block, gen)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)) * mask[..., None]
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    return (block.to(device).train(), x.to(device, torch.bfloat16),
+            g.to(device, torch.bfloat16), args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_cuda_remat_block_gradients_bit_equal(cuda_device, kind, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    block, x0, g, args = _remat_block(kind, cuda_device)
+    got = {}
+    for remat in (False, True):
+        b = copy.deepcopy(block)
+        x = x0.clone().requires_grad_()
+        before = {r: NL.LAUNCHES[r] for r in BN_ROLES}
+        out = PL.remat(b, x, *args) if remat else b(x, *args)
+        out.backward(g)
+        torch.cuda.synchronize()
+        # two norms a block, each recomputed once under remat
+        assert {r: NL.LAUNCHES[r] - before[r] for r in BN_ROLES} == \
+            {"bn_stats": 4 * (1 + remat), "bn_apply": 2 * (1 + remat), "bn_grad": 4}
+        got[remat] = [out.detach(), x.grad] + [p.grad for p in b.parameters()] + \
+            [t for n, t in b.named_buffers()]
+    assert all(BC.bit_equal(a, b) for a, b in zip(got[False], got[True]))
